@@ -1,0 +1,26 @@
+"""mceik_tpu_torch: the PyTorch + CUDA port of mceik-tpu.
+
+Bayesian eikonal traveltime tomography on an NVIDIA GPU. The JAX package
+``mceik_tpu`` beside this one is the reference: every module here mirrors
+its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
+``mceik_tpu_torch/eikonal/solve.py``) and is tested against it on the CPU.
+
+- ``eikonal``  — Godunov local solver, plain plane-sweep solve (the CPU path
+  and the kernel's reference), the hand-written CUDA sweep kernel
+  (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and the batched entry.
+- ``forward``  — traveltime tables and receiver interpolation.
+- ``model``    — parameters, data containers, the tomo posterior.
+- ``samplers`` — the generic MCMC runner, dual averaging, adaptive Metropolis.
+- ``diag``     — Welford moments, R-hat and ESS.
+- ``io``       — JSON configs with dotted overrides, JSONL metrics.
+- ``api`` / ``cli`` — ``python -m mceik_tpu_torch run <config>``.
+
+This package imports neither ``jax`` nor ``mceik_tpu``; only its tests
+import both. Batch dimensions are explicit: a chain step is one call over a
+leading chain axis, and the forward model makes one batched eikonal solve
+per step.
+"""
+
+__version__ = "0.1.0"
+
+from mceik_tpu_torch.grid import Grid  # noqa: F401

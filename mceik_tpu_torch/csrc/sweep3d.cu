@@ -1,0 +1,230 @@
+// K1: one full 3-D eikonal sweep cycle over a batch of fields, for sm_90a.
+//
+// Replaces the Pallas TPU kernel `_sweep_axes012_fused_kernel` /
+// `sweep_axes012_fused` (mceik_tpu/eikonal/pallas_sweep.py:343, :372), the
+// body of `sweep_solve_pallas_packed` on cube grids. It computes the plain
+// reference `sweep_cycle_plain` (mceik_tpu_torch/eikonal/solve.py, itself
+// the port of mceik_tpu/eikonal/solve.py:_sweep_cycle) operation for
+// operation: for axis 0, 1, 2 in turn, march the planes forward and then
+// backward; each plane takes a_ax = min(T[i-1], T[i+1]) (T[i-1] already
+// updated in this march, edges read BIG) and then n_inner in-plane Jacobi
+// steps T = max(min(T, local_solve(a)), floor).
+//
+// Design. One CTA owns one field (B = 128 fields of 64^3 fill 128 of the
+// H100's 132 SMs) and walks the whole cycle on it; the plane march is
+// sequential, so there is nothing to split across CTAs without a grid-wide
+// barrier. Shared memory holds three plane buffers: the axial minimum a_ax
+// (built in place over the previous plane's final values) and the current
+// plane double-buffered for the Jacobi steps, with __syncthreads() between
+// micro-iterations and planes. A 64^2 plane is 16 KB, so 48 KB in all.
+// T is updated in place in global memory; the caller keeps the cycle's
+// input to measure convergence. The seed floor is an operand, not rebuilt
+// from the source coordinates as the TPU kernel does to save VMEM.
+//
+// What bounds it. Each plane visit loads the current and the downstream
+// plane of T, reads s and floor once per Jacobi step, stores the plane, and
+// crosses n_inner + 2 block barriers; the ~40 flops per node and step are
+// small beside that, so the kernel is bound by global-load latency and
+// barrier count, with one CTA of 1024 threads per SM to hide them. The
+// axis-0 and axis-1 sweeps walk planes whose rows run along z and load
+// coalesced; the axis-2 sweep's planes are (x, y) slices whose rows are
+// strided by nz floats, so its loads do not coalesce. Transposed layouts,
+// clusters and TMA are later work.
+//
+// Arithmetic matches mceik_tpu_torch/eikonal/godunov.py (and the JAX
+// package) in operation order; build with --fmad=false so that no product
+// is contracted into an FMA the reference does not have.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kBig = 1e10f;
+constexpr float kDiscFloor = 1e-12f;
+
+struct SweepConsts {
+  float h[3];   // spacing per grid axis
+  float hh[3];  // h*h, rounded once from double (as JAX's weak-typed h*h)
+  float w[3];   // 1/(h*h), rounded once from double
+  int iso;      // all spacings equal -> closed form (godunov.py's choice)
+  int n_inner;
+};
+
+__device__ __forceinline__ float sqrt_floored(float x) {
+  return sqrtf(fmaxf(x, kDiscFloor));
+}
+
+// godunov._local_solve_iso, D = 3.
+__device__ __forceinline__ float local_iso(float x0, float x1, float x2,
+                                           float s, float h, float hh) {
+  float lo = fminf(x0, x1), hi = fmaxf(x0, x1);
+  float m = fminf(x2, hi);
+  hi = fmaxf(x2, hi);
+  float a1 = fminf(lo, m), a2 = fmaxf(lo, m), a3 = hi;
+  float s2h2 = (s * s) * hh;
+  float t1 = a1 + s * h;
+  float d12 = a1 - a2;
+  float t2 = 0.5f * ((a1 + a2) + sqrt_floored(2.0f * s2h2 - d12 * d12));
+  float d13 = a1 - a3, d23 = a2 - a3;
+  float t3 = (1.0f / 3.0f) *
+             ((a1 + a2 + a3) +
+              sqrt_floored(3.0f * s2h2 - (d12 * d12 + d13 * d13 + d23 * d23)));
+  return t1 <= a2 ? t1 : (t2 <= a3 ? t2 : t3);
+}
+
+__device__ __forceinline__ void cswap(float& ax, float& wx, float& ay, float& wy) {
+  if (ay < ax) {
+    float t = ax; ax = ay; ay = t;
+    t = wx; wx = wy; wy = t;
+  }
+}
+
+// godunov.local_solve's weighted sorted-subset form, D = 3.
+__device__ __forceinline__ float local_weighted(float a1, float a2, float a3,
+                                                float w1, float w2, float w3,
+                                                float s) {
+  cswap(a1, w1, a2, w2);
+  cswap(a2, w2, a3, w3);
+  cswap(a1, w1, a2, w2);
+  float s2 = s * s;
+  float t1 = a1 + s * sqrtf(1.0f / w1);
+  float A2 = w1 + w2;
+  float B2 = w1 * a1 + w2 * a2;
+  float d12 = a1 - a2;
+  float disc2 = A2 * s2 - w1 * w2 * (d12 * d12);
+  float t2 = (B2 + sqrt_floored(disc2)) / A2;
+  float A3 = A2 + w3;
+  float B3 = B2 + w3 * a3;
+  float d13 = a1 - a3, d23 = a2 - a3;
+  float disc3 = A3 * s2 - (w1 * w2 * (d12 * d12) + w1 * w3 * (d13 * d13) +
+                           w2 * w3 * (d23 * d23));
+  float t3 = (B3 + sqrt_floored(disc3)) / A3;
+  return t1 <= a2 ? t1 : (t2 <= a3 ? t2 : t3);
+}
+
+// T is read and written by the CTA (no __restrict__/read-only path: later
+// plane visits must see earlier stores of the same CTA).
+__global__ void __launch_bounds__(1024)
+sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
+                     const float* __restrict__ F,
+                     const uint8_t* __restrict__ done, int n0, int n1, int n2,
+                     SweepConsts c) {
+  const int b = blockIdx.x;
+  if (done[b]) return;  // uniform per CTA: no barrier is skipped by half
+  const int64_t field = (int64_t)n0 * n1 * n2;
+  T += b * field;
+  S += b * field;
+  F += b * field;
+
+  extern __shared__ float smem[];
+  const int n[3] = {n0, n1, n2};
+  const int64_t stride[3] = {(int64_t)n1 * n2, n2, 1};
+  const int max_plane = max(n1 * n2, max(n0 * n2, n0 * n1));
+  float* buf0 = smem;
+  float* buf1 = smem + max_plane;
+  float* buf2 = smem + 2 * max_plane;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  for (int ax = 0; ax < 3; ++ax) {
+    // Plane axes in grid order; spacing order (swept, p, q) as the
+    // reference's moveaxis layout.
+    const int p = ax == 0 ? 1 : 0;
+    const int q = ax == 2 ? 1 : 2;
+    const int np_ = n[p], nq = n[q], nax = n[ax];
+    const int plane = np_ * nq;
+    const int64_t sa = stride[ax], sp = stride[p], sq = stride[q];
+    const float h = c.h[ax], hh = c.hh[ax];
+    const float w0 = c.w[ax], w1 = c.w[p], w2 = c.w[q];
+
+    for (int dir = 0; dir < 2; ++dir) {
+      const int step = dir == 0 ? 1 : -1;
+      const int first = dir == 0 ? 0 : nax - 1;
+      float* aax = buf0;
+      float* cur = buf1;
+      float* nxt = buf2;
+      // a_ax for the first plane: prev is BIG, so min(BIG, T[next]).
+      {
+        const int inx = first + step;
+        const bool has = inx >= 0 && inx < nax;
+        for (int m = tid; m < plane; m += nthr) {
+          const int ip = m / nq, iq = m - ip * nq;
+          aax[m] = has ? fminf(kBig, T[inx * sa + ip * sp + iq * sq]) : kBig;
+        }
+      }
+      for (int k = 0; k < nax; ++k) {
+        const int i = first + step * k;
+        const int64_t base = i * sa;
+        for (int m = tid; m < plane; m += nthr) {
+          const int ip = m / nq, iq = m - ip * nq;
+          cur[m] = T[base + ip * sp + iq * sq];
+        }
+        __syncthreads();
+        for (int it = 0; it < c.n_inner; ++it) {
+          for (int m = tid; m < plane; m += nthr) {
+            const int ip = m / nq, iq = m - ip * nq;
+            const int64_t off = base + ip * sp + iq * sq;
+            const float tc = cur[m];
+            const float ap = fminf(ip + 1 < np_ ? cur[m + nq] : kBig,
+                                   ip > 0 ? cur[m - nq] : kBig);
+            const float aq = fminf(iq + 1 < nq ? cur[m + 1] : kBig,
+                                   iq > 0 ? cur[m - 1] : kBig);
+            const float s = S[off];
+            const float t = c.iso ? local_iso(aax[m], ap, aq, s, h, hh)
+                                  : local_weighted(aax[m], ap, aq, w0, w1, w2, s);
+            nxt[m] = fmaxf(fminf(tc, t), F[off]);
+          }
+          __syncthreads();
+          float* tmp = cur; cur = nxt; nxt = tmp;
+        }
+        // Store the plane; fold it into the next plane's a_ax in place
+        // (each thread touches only its own nodes here).
+        const int inx2 = i + 2 * step;  // the next plane's downstream plane
+        const bool more = k + 1 < nax;
+        const bool has2 = inx2 >= 0 && inx2 < nax;
+        for (int m = tid; m < plane; m += nthr) {
+          const int ip = m / nq, iq = m - ip * nq;
+          const float v = cur[m];
+          T[base + ip * sp + iq * sq] = v;
+          if (more)
+            cur[m] = fminf(v, has2 ? T[inx2 * sa + ip * sp + iq * sq] : kBig);
+        }
+        float* tmp = aax; aax = cur; cur = tmp;
+        __syncthreads();
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// C entry, loaded with ctypes. `consts` is a host array of 9 floats
+// (h[3], hh[3], w[3]). Launches on `stream` of `device`; returns the CUDA
+// error code of the set-up calls or of cudaGetLastError() after the launch
+// (0 = launched). Does not synchronise.
+extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
+                             const uint8_t* done, int B, int n0, int n1,
+                             int n2, const float* consts, int iso, int n_inner,
+                             int threads, int device, void* stream) {
+  SweepConsts c;
+  for (int d = 0; d < 3; ++d) {
+    c.h[d] = consts[d];
+    c.hh[d] = consts[3 + d];
+    c.w[d] = consts[6 + d];
+  }
+  c.iso = iso;
+  c.n_inner = n_inner;
+  int max_plane = n1 * n2;
+  if (n0 * n2 > max_plane) max_plane = n0 * n2;
+  if (n0 * n1 > max_plane) max_plane = n0 * n1;
+  const size_t smem = 3 * (size_t)max_plane * sizeof(float);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      sweep3d_cycle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sweep3d_cycle_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      T, S, F, done, n0, n1, n2, c);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,5 @@
+"""Eikonal solvers: Godunov local solve, plain plane sweeps, the CUDA sweep
+kernel and the batched entry point."""
+
+from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched  # noqa: F401
+from mceik_tpu_torch.eikonal.solve import EikonalConfig  # noqa: F401

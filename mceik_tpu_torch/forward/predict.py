@@ -1,0 +1,81 @@
+"""Traveltime tables + receiver interpolation -> predicted arrivals.
+
+Counterpart of ``mceik_tpu/forward/predict.py`` (the non-differentiable
+branch). A leading chain axis on the slowness is carried through: every
+chain's tables go into ONE batched solve of ``chains x table points``
+fields.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
+from mceik_tpu_torch.eikonal.solve import EikonalConfig
+from mceik_tpu_torch.grid import Grid, sample_linear
+
+
+def traveltime_tables(slowness: torch.Tensor, table_xyz: torch.Tensor,
+                      grid: Grid, config: EikonalConfig = EikonalConfig(),
+                      differentiable: bool = False) -> torch.Tensor:
+    """Solve one traveltime field per table point (station or source).
+
+    Args:
+      slowness: grid-shaped, or ``(C,) + grid.shape`` for C chains.
+      table_xyz: ``(n_tab, D)`` physical coordinates of the solve origins.
+
+    Returns ``(n_tab,) + grid.shape``, or ``(C, n_tab) + grid.shape``.
+    """
+    if differentiable:
+        raise NotImplementedError(
+            "differentiable traveltimes (implicit adjoint) are slice 3 of "
+            "the port")
+    lead = tuple(slowness.shape[:-grid.ndim])
+    s = slowness.reshape((-1,) + grid.shape)
+    C, n_tab = s.shape[0], table_xyz.shape[0]
+    s_b = s.unsqueeze(1).expand((C, n_tab) + grid.shape)
+    srcs = table_xyz.unsqueeze(0).expand(C, n_tab, grid.ndim)
+    T = solve_eikonal_batched(s_b.reshape((C * n_tab,) + grid.shape),
+                              srcs.reshape(C * n_tab, grid.ndim), grid, config)
+    return T.reshape(lead + (n_tab,) + grid.shape)
+
+
+def interp_at(T: torch.Tensor, xyz: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Multilinear interpolation of one grid field at physical points
+    (coordinates clamped to the grid). ``xyz``: ``(..., D)`` -> ``(...)``."""
+    idx = grid.to_index_coords(xyz)
+    out = sample_linear(T.unsqueeze(0), idx.reshape(1, -1, grid.ndim))
+    return out.reshape(xyz.shape[:-1])
+
+
+def interp_tables(tables: torch.Tensor, xyz: torch.Tensor,
+                  grid: Grid) -> torch.Tensor:
+    """Interpolate every table at every point: ``(..., n_tab) + grid`` and
+    ``(n_pts, D)`` -> ``(..., n_tab, n_pts)``."""
+    lead = tuple(tables.shape[:-grid.ndim])
+    flat = tables.reshape((-1,) + grid.shape)
+    idx = grid.to_index_coords(xyz).reshape(1, -1, grid.ndim)
+    out = sample_linear(flat, idx.expand(flat.shape[0], -1, -1))
+    return out.reshape(lead + (idx.shape[1],))
+
+
+def predict_tomo(slowness: torch.Tensor, src_xyz: torch.Tensor,
+                 rec_xyz: torch.Tensor, grid: Grid,
+                 config: EikonalConfig = EikonalConfig(),
+                 solve_from: str = "auto",
+                 differentiable: bool = False) -> torch.Tensor:
+    """Predicted traveltimes for known source/receiver pairs.
+
+    Returns ``(n_src, n_rec)`` (or ``(C, n_src, n_rec)`` for a chain batch of
+    slowness fields). Solves from whichever side has fewer points
+    (reciprocity) unless forced by ``solve_from``.
+    """
+    n_src, n_rec = src_xyz.shape[0], rec_xyz.shape[0]
+    if solve_from == "auto":
+        solve_from = "src" if n_src <= n_rec else "rec"
+    if solve_from == "src":
+        tables = traveltime_tables(slowness, src_xyz, grid, config,
+                                   differentiable)
+        return interp_tables(tables, rec_xyz, grid)
+    tables = traveltime_tables(slowness, rec_xyz, grid, config, differentiable)
+    return interp_tables(tables, src_xyz, grid).transpose(-1, -2)

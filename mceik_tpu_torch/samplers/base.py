@@ -1,0 +1,117 @@
+"""Generic MCMC runner: warmup with adaptation, then sampling with online
+Welford moments and thinned collection.
+
+Counterpart of ``mceik_tpu/samplers/base.py``. The chain axis is the
+leading axis of every state leaf, so one kernel call advances all chains,
+and the JAX package's ``scan`` becomes a Python loop. A kernel takes its
+random draws as tensors, ``kernel(state, hyper, normal, uniform)``: the
+runner draws ``normal`` (a tree like the params) and ``uniform`` (one per
+chain) from its generator, so a test can hand a kernel JAX's draws instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from mceik_tpu_torch.diag.moments import Welford, welford_init, welford_update
+from mceik_tpu_torch.utils import tree_map, tree_random_normal
+
+
+@dataclasses.dataclass
+class MHState:
+    """Metropolis-family chain state (leading chain axis on every leaf)."""
+
+    params: Any
+    logpost: torch.Tensor  # (C,)
+
+
+@dataclasses.dataclass
+class MCMCResult:
+    states: MHState        # final states
+    hyper: Any             # final adaptation parameters
+    welford: Welford       # per-chain online moments of track_fn output
+    samples: Any           # thinned draws: tree of (n_collect, C, ...)
+    logpost_trace: torch.Tensor  # (n_collect, C)
+    accept_trace: torch.Tensor   # (n_collect, C) mean accept prob
+
+
+def init_chain_states(logpost_fn: Callable, init_params_fn: Callable,
+                      gen: torch.Generator, n_chains: int) -> MHState:
+    """Draw every chain's start from the model's init distribution."""
+    params = init_params_fn(gen, n_chains)
+    return MHState(params=params, logpost=logpost_fn(params))
+
+
+def _one_step(kernel, states: MHState, hyper, gen: torch.Generator):
+    normal = tree_random_normal(gen, states.params)
+    uniform = torch.rand(states.logpost.shape, generator=gen,
+                         dtype=torch.float32, device=states.logpost.device)
+    states, info = kernel(states, hyper, normal, uniform)
+    pooled = {k: v.mean(0) for k, v in info.items()}
+    return states, info, pooled
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
+             init_states: MHState, init_hyper: Any, gen: torch.Generator,
+             n_warmup: int, n_steps: int, thin: int = 1,
+             track_fn: Optional[Callable] = None,
+             finalize_fn: Optional[Callable] = None,
+             collect_fn: Optional[Callable] = None,
+             init_welford: Optional[Welford] = None) -> MCMCResult:
+    """Run warmup (with adaptation) then sampling (with collection).
+
+    kernel:      (state, hyper, normal, uniform) -> (state, info); info holds
+                 "accept_prob" per chain.
+    adapt_fn:    (hyper, pooled_info, states, t) -> hyper, or None.
+    track_fn:    params -> tree whose online moments are accumulated every
+                 sampling step (default: the params).
+    collect_fn:  params -> tree stored every ``thin`` steps (default:
+                 track_fn).
+    finalize_fn: hyper -> hyper, applied once after warmup.
+    init_welford: the previous segment's accumulator, for segmented runs.
+    """
+    if track_fn is None:
+        track_fn = lambda p: p
+    if collect_fn is None:
+        collect_fn = track_fn
+
+    states, hyper = init_states, init_hyper
+    for t in range(n_warmup):
+        states, _, pooled = _one_step(kernel, states, hyper, gen)
+        if adapt_fn is not None:
+            hyper = adapt_fn(hyper, pooled, states, t)
+    if finalize_fn is not None:
+        hyper = finalize_fn(hyper)
+
+    n_chains = states.logpost.shape[0]
+    welford = init_welford
+    if welford is None:
+        tracked0 = track_fn(states.params)
+        welford = welford_init(tree_map(lambda x: x[0], tracked0),
+                               batch_shape=(n_chains,))
+    draws, lps, accs = [], [], []
+    for _ in range(n_steps // thin):
+        acc = torch.zeros_like(states.logpost)
+        for _ in range(thin):
+            states, info, _ = _one_step(kernel, states, hyper, gen)
+            welford = welford_update(welford, track_fn(states.params))
+            acc = acc + info["accept_prob"]
+        draws.append(collect_fn(states.params))
+        lps.append(states.logpost)
+        accs.append(acc / thin)
+
+    dev = states.logpost.device
+    empty = torch.zeros((0, n_chains), dtype=torch.float32, device=dev)
+    return MCMCResult(
+        states=states, hyper=hyper, welford=welford,
+        samples=_stack(draws) if draws else None,
+        logpost_trace=torch.stack(lps) if lps else empty,
+        accept_trace=torch.stack(accs) if accs else empty,
+    )

@@ -1,0 +1,56 @@
+"""Tree helpers over parameter containers (``Params``, dicts of tensors).
+
+Counterpart of the pieces of ``mceik_tpu/utils.py`` adaptive Metropolis
+uses. A tree is a tensor, a dict of trees or a dataclass of trees; ``None``
+leaves are skipped, as in a JAX pytree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of one structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    raise TypeError(f"not a tree node: {type(tree).__name__}")
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """Leaves in field/key order (the JAX flattening order for Params)."""
+    out: List[torch.Tensor] = []
+    tree_map(lambda x: out.append(x), tree)
+    return out
+
+
+def tree_random_normal(gen: torch.Generator, example: Any) -> Any:
+    """Standard-normal tree with the shapes of ``example``, drawn leaf by
+    leaf from ``gen``."""
+    return tree_map(lambda x: torch.randn(
+        x.shape, generator=gen, dtype=x.dtype, device=x.device), example)
+
+
+def tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
+    """Select whole trees per chain: ``pred`` is ``(C,)`` and every leaf has
+    a leading chain axis."""
+    def sel(x, y):
+        return torch.where(pred.reshape(pred.shape + (1,) * (x.ndim - 1)), x, y)
+    return tree_map(sel, a, b)
+
+
+def tree_size(tree: Any) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(tree))

@@ -1,0 +1,93 @@
+"""Tests of the CUDA sweep kernel (``mceik_tpu_torch/csrc/sweep3d.cu``)
+against its plain PyTorch version. They need an NVIDIA GPU with nvcc and
+skip elsewhere. This file imports no JAX, so it runs on a machine without
+it; there, skip tests/conftest.py (which configures JAX):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mceik_tpu_torch.eikonal import cuda_sweep
+from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
+from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
+                                           seed_source, sweep_cycle_plain)
+from mceik_tpu_torch.grid import Grid
+from mceik_tpu_torch.model.params import slowness_from_u
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card)")
+    return torch.device("cuda")
+
+
+def _batch(dev, shape, spacing, srcs, seed=4, amp=0.3):
+    gen = torch.Generator().manual_seed(seed)
+    u = amp * torch.randn((len(srcs), 5, 5, 5), generator=gen)
+    g = Grid(shape, spacing)
+    s = slowness_from_u(u, g, torch.tensor(1.0)).to(dev)
+    srcs = torch.tensor(srcs, dtype=torch.float32, device=dev)
+    T0, frozen = seed_source(s, srcs, g, 3.0)
+    return g, s, srcs, T0, seed_floor(T0, frozen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing", [
+    ((24, 20, 16), (1.0, 1.2, 0.9)),    # weighted local solve, non-cube
+    ((32, 32, 32), (1.0, 1.0, 1.0)),    # closed isotropic form
+])
+def test_kernel_cycle_matches_plain(dev, shape, spacing):
+    """One launch equals one plain cycle (the same fp32 operations: bar
+    1e-4), and a done field passes through untouched."""
+    g, s, _, T0, fl = _batch(dev, shape, spacing,
+                             [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                              [12.0, 18.0, 9.0]])
+    done = torch.tensor([False, True, False], device=dev)
+    launches = cuda_sweep.SWEEP3D.launches
+    out = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2, done)
+    torch.cuda.synchronize()
+    assert cuda_sweep.SWEEP3D.launches == launches + 1
+    ref = sweep_cycle_plain(T0, s, fl, g.spacing, 2, done)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert torch.equal(out[1], T0[1])
+    assert float((out[0] - T0[0]).abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_kernel_solve_matches_plain_solve(dev):
+    """A whole batched solve at tol 1e-5 through the kernel equals the
+    plain solve on the card within 1e-4."""
+    g, s, srcs, _, _ = _batch(dev, (32, 24, 16), (1.0, 1.0, 1.0),
+                              [[2.0, 3.0, 4.0], [30.0, 20.0, 2.0],
+                               [15.0, 12.0, 8.0], [0.0, 0.0, 0.0],
+                               [31.0, 23.0, 15.0]], amp=0.6)
+    launches = cuda_sweep.SWEEP3D.launches
+    out = solve_eikonal_batched(s, srcs, g, EikonalConfig(tol=1e-5,
+                                                          max_iters=100))
+    assert cuda_sweep.SWEEP3D.launches > launches
+    ref = solve_eikonal_batched(s, srcs, g, EikonalConfig(
+        tol=1e-5, max_iters=100, use_pallas="off"))
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_checks_inputs(dev):
+    g, s, _, T0, fl = _batch(dev, (8, 8, 8), (1.0, 1.0, 1.0),
+                             [[1.0, 2.0, 3.0]])
+    k = cuda_sweep.SWEEP3D
+    with pytest.raises(ValueError, match="float32"):
+        k(T0.double(), s, fl, g.spacing, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k(T0.transpose(1, 2), s, fl, g.spacing, 2)
+    with pytest.raises(ValueError, match="shared"):
+        big = torch.zeros((1, 8, 140, 140), device=dev)
+        k(big, big, big, g.spacing, 2)
+    np.testing.assert_array_equal(
+        k(T0, s, fl, g.spacing, 2, torch.ones(1, dtype=torch.bool,
+                                                device=dev)).cpu().numpy(),
+        T0.cpu().numpy())
