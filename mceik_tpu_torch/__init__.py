@@ -7,11 +7,18 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
 
 - ``eikonal``  — Godunov local solver, plain plane-sweep solve (the CPU path
   and the kernel's reference), the hand-written CUDA sweep kernel
-  (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and the batched entry.
+  (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and the batched entry;
+  the differentiable solve through the implicit adjoint
+  (``eikonal/adjoint.py``), its plain transport sweeps
+  (``eikonal/adjoint_sweep.py``) and the CUDA transport kernel
+  (``eikonal/cuda_transport.py`` + ``csrc/transport3d.cu``).
 - ``forward``  — traveltime tables and receiver interpolation.
-- ``model``    — parameters, data containers, the tomo posterior.
-- ``samplers`` — the generic MCMC runner, dual averaging, adaptive Metropolis.
-- ``diag``     — Welford moments, R-hat and ESS.
+- ``model``    — parameters, data containers, the tomo posterior (with
+  gradients and the Gauss-Newton Jacobian), the Laplace fit.
+- ``samplers`` — the generic MCMC runner, dual averaging, adaptive
+  Metropolis (diagonal and full covariance), preconditioned MALA.
+- ``diag``     — Welford moments, R-hat and ESS; a device profile of
+  sampler steps (``python -m mceik_tpu_torch.diag.profile``).
 - ``io``       — JSON configs with dotted overrides, JSONL metrics.
 - ``api`` / ``cli`` — ``python -m mceik_tpu_torch run <config>``.
 

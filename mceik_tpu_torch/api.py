@@ -1,11 +1,12 @@
 """Top-level API: ``run(config, device) -> RunSummary``.
 
-Counterpart of ``mceik_tpu/api.py`` for adaptive Metropolis on the tomo
-posterior: config -> grid -> synthetic data -> posterior -> AM, sampled in
-segments of ``io.log_every`` steps with one JSONL metrics record per
-segment (plus one for the initial states), then pooled moments and
-diagnostics. Welford moments carry across segments, so segmentation never
-changes the statistics.
+Counterpart of ``mceik_tpu/api.py`` for the tomo posterior: config ->
+grid -> synthetic data -> posterior -> sampler (am, am_full, or mala with
+an optional Laplace preconditioner), sampled in segments of
+``io.log_every`` steps with one JSONL metrics record per segment (plus one
+for the Laplace setup and one for the initial states), then pooled moments
+and diagnostics. Welford moments carry across segments, so segmentation
+never changes the statistics.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
 from mceik_tpu_torch.io.metrics import MetricsLogger
 from mceik_tpu_torch.model.posterior import build_posterior
-from mceik_tpu_torch.samplers import am
+from mceik_tpu_torch.samplers import am, am_full, mala
 from mceik_tpu_torch.samplers.base import MCMCResult, init_chain_states, run_mcmc
 from mceik_tpu_torch.utils import tree_map
+
+SAMPLERS = ("am", "am_full", "mala")
 
 
 @dataclasses.dataclass
@@ -53,17 +56,18 @@ def _check_supported(config: RunConfig) -> None:
     """Refuse, naming the later slice, what this slice of the port does not
     run yet."""
     scfg, io, dist = config.sampler, config.io, config.dist
-    if scfg.algorithm != "am":
+    if scfg.algorithm not in SAMPLERS:
         raise NotImplementedError(
-            f"sampler {scfg.algorithm!r}: the port runs 'am' (rwm and smc "
-            "are slice 2; hmc, nuts, mala, pcn and am_full slice 3)")
+            f"sampler {scfg.algorithm!r}: the port runs {', '.join(SAMPLERS)} "
+            "(rwm and smc are slice 3, the 2-D slice; hmc, nuts and pcn "
+            "slice 4)")
     if io.checkpoint_path or io.resume or io.checkpoint_every:
-        raise NotImplementedError("checkpointing and resume are slice 4 of "
+        raise NotImplementedError("checkpointing and resume are slice 5 of "
                                   "the port")
     if io.profile_dir:
         raise NotImplementedError("io.profile_dir: profiling is not ported")
     if dist.multihost or (dist.n_devices or 1) > 1:
-        raise NotImplementedError("multi-device runs are slice 5 of the port")
+        raise NotImplementedError("multi-device runs are slice 6 of the port")
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -72,6 +76,61 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 def _step_size_of(hyper) -> float:
     return float(torch.exp(hyper.log_step))
+
+
+def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
+    """Returns ``(kernel, adapter, hyper, finalize_fn, states)``, with the
+    chains initialised. MALA carries cached gradients; with
+    ``precondition="laplace"`` the MAP and Gauss-Newton covariance are
+    computed once here and pinned, and the chains start at the MAP plus
+    0.3x Laplace jitter."""
+    scales = posterior.prior_scales
+    lp = posterior.logpost
+    if scfg.algorithm == "mala":
+        target = max(scfg.target_accept, 0.574)
+        hyper = mala.init_hyper(scales, scfg.step_size)
+        init_fn = posterior.init_params
+        adapt_cov = True
+        if scfg.precondition == "laplace":
+            from mceik_tpu_torch.model.laplace import laplace_preconditioner
+            t0 = time.perf_counter()
+            p_map, cov, trace = laplace_preconditioner(
+                posterior, n_map_steps=scfg.n_map_steps)
+            hyper = mala.prime_covariance(hyper, cov)
+            adapt_cov = False
+            x_map = mala._ravel(p_map, batch_dims=1)            # (1, d)
+            active = (mala._ravel(scales) > 0).to(torch.float32)
+            L_init = torch.linalg.cholesky(cov)
+            unravel = mala._unravel_fn(p_map, batch_dims=1)
+
+            def init_fn(gen, n):
+                # MAP + 0.3x Laplace jitter: full draws from the Laplace
+                # fit land far out in the soft, prior-dominated subspace
+                # where the forward model is most nonlinear (reference
+                # api.py); burn-in is discarded as usual.
+                eps = active * torch.randn((n, x_map.shape[1]), generator=gen,
+                                           dtype=torch.float32,
+                                           device=x_map.device)
+                return unravel(x_map + 0.3 * (eps @ L_init.T))
+
+            if logger is not None:
+                logger.log({"phase": "laplace",
+                            "seconds": round(time.perf_counter() - t0, 3),
+                            "n_trace": len(trace),
+                            "logpost_first": round(trace[0], 3),
+                            "logpost_last": round(trace[-1], 3)})
+        states = mala.init_states(lp, init_fn, gen, scfg.n_chains)
+        return (mala.make_kernel(lp), mala.make_adapter(target,
+                                                        adapt_cov=adapt_cov),
+                hyper, mala.finalize, states)
+    states = init_chain_states(lp, posterior.init_params, gen, scfg.n_chains)
+    if scfg.algorithm == "am_full":
+        return (am_full.make_kernel(lp), am_full.make_adapter(scfg.target_accept),
+                am_full.init_hyper(scales, scfg.step_size),
+                am_full.finalize, states)
+    example = tree_map(lambda x: x[0], states.params)
+    return (am.make_kernel(lp), am.make_adapter(scfg.target_accept),
+            am.init_hyper(scales, scfg.step_size, example), am.finalize, states)
 
 
 def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
@@ -89,16 +148,16 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
 
     grid = config.grid.build()
     data, truth = make_dataset(grid, config.data, config.model, device=device)
-    posterior = build_posterior(config.model, data, grid, config.eikonal)
     scfg = config.sampler
+    # Of the samplers the port runs, only MALA takes gradients (hmc, nuts
+    # and whitened pcn join it in slice 4).
+    posterior = build_posterior(config.model, data, grid, config.eikonal,
+                                differentiable=scfg.algorithm == "mala")
 
+    logger = MetricsLogger() if verbose else None
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
-    states = init_chain_states(posterior.logpost, posterior.init_params, gen,
-                               scfg.n_chains)
-    example = tree_map(lambda x: x[0], states.params)
-    kernel = am.make_kernel(posterior.logpost)
-    adapter = am.make_adapter(scfg.target_accept)
-    hyper = am.init_hyper(posterior.prior_scales, scfg.step_size, example)
+    kernel, adapter, hyper, finalize_fn, states = _dispatch_sampler(
+        scfg, posterior, gen, logger)
 
     def track_fn(params):
         return {"params": params, "slowness": posterior.slowness_of(params)}
@@ -111,7 +170,6 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     n_steps_actual = n_seg * seg
     n_warmup = scfg.n_warmup
 
-    logger = MetricsLogger() if verbose else None
     if logger is not None:
         lp0 = _to_numpy(states.logpost)
         logger.log({"phase": "init", "step": 0, "device": str(device),
@@ -126,7 +184,7 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
         r = run_mcmc(kernel, adapter if si == 0 else None, states, hyper, gen,
                      n_warmup=n_warmup if si == 0 else 0, n_steps=seg,
                      thin=scfg.thin, track_fn=track_fn, collect_fn=collect_fn,
-                     finalize_fn=am.finalize if si == 0 else None,
+                     finalize_fn=finalize_fn if si == 0 else None,
                      init_welford=welford)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

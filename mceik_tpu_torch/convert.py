@@ -1,7 +1,7 @@
 """Carry state across from the JAX package.
 
 Each function takes objects of the JAX package (``Params``, ``TomoData``,
-``AMHyper``) whose leaves are array-likes, reads them as numpy arrays, and
+``AMHyper``, ``AMFullHyper``, ``MALAState``) whose leaves are array-likes, reads them as numpy arrays, and
 returns the port's dataclasses on ``device``. Attribute access only: this
 module imports neither ``jax`` nor ``mceik_tpu``. The parity tests use it
 so that both packages compute on the same state.
@@ -16,7 +16,9 @@ from mceik_tpu_torch.diag.moments import Welford
 from mceik_tpu_torch.model.data import TomoData
 from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.samplers.am import AMHyper
+from mceik_tpu_torch.samplers.am_full import AMFullHyper
 from mceik_tpu_torch.samplers.hmc import DualAveraging
+from mceik_tpu_torch.samplers.mala import MALAState
 
 
 def _t(x, device):
@@ -37,6 +39,12 @@ def tomo_data_from_jax(d, device="cpu") -> TomoData:
                     t_obs=_t(d.t_obs, device), mask=_t(d.mask, device))
 
 
+def _da_from_jax(da, device) -> DualAveraging:
+    return DualAveraging(mu=_t(da.mu, device), log_eps=_t(da.log_eps, device),
+                         log_eps_bar=_t(da.log_eps_bar, device),
+                         h_bar=_t(da.h_bar, device))
+
+
 def am_hyper_from_jax(h, device="cpu") -> AMHyper:
     w = h.welford
     return AMHyper(
@@ -46,7 +54,21 @@ def am_hyper_from_jax(h, device="cpu") -> AMHyper:
                         mean=params_from_jax(w.mean, device),
                         m2=params_from_jax(w.m2, device)),
         reg=_t(h.reg, device),
-        da=DualAveraging(mu=_t(h.da.mu, device), log_eps=_t(h.da.log_eps, device),
-                         log_eps_bar=_t(h.da.log_eps_bar, device),
-                         h_bar=_t(h.da.h_bar, device)),
+        da=_da_from_jax(h.da, device),
     )
+
+
+def am_full_hyper_from_jax(h, device="cpu") -> AMFullHyper:
+    """Full-covariance AM's (and MALA's) hyper."""
+    return AMFullHyper(
+        log_step=_t(h.log_step, device), count=_t(h.count, device),
+        mean=_t(h.mean, device), m2=_t(h.m2, device),
+        scales_flat=_t(h.scales_flat, device), reg=_t(h.reg, device),
+        da=_da_from_jax(h.da, device))
+
+
+def mala_state_from_jax(s, device="cpu") -> MALAState:
+    """Chain-batched MALA state, cached gradient included."""
+    return MALAState(params=params_from_jax(s.params, device),
+                     logpost=_t(s.logpost, device),
+                     grad=params_from_jax(s.grad, device))

@@ -88,9 +88,9 @@ def make_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
     if dcfg.dataset == "checkerboard3d":
         data, s_true = checkerboard3d_dataset(grid, dcfg, mcfg, eik, device)
         return data, {"slowness": s_true}
-    later = {"crosswell2d": "slice 2", "checkerboard3d_volume": "slice 3",
-             "events3d": "slice 3", "events3d_volume": "slice 3",
-             "file": "slice 4", "csv": "slice 4"}
+    later = {"crosswell2d": "slice 3", "checkerboard3d_volume": "slice 4",
+             "events3d": "slice 4", "events3d_volume": "slice 4",
+             "file": "slice 5", "csv": "slice 5"}
     if dcfg.dataset in later:
         raise NotImplementedError(
             f"dataset {dcfg.dataset!r} is {later[dcfg.dataset]} of the port")

@@ -34,7 +34,7 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
     if config.method != "sweep":
         raise NotImplementedError(
             f"eikonal method {config.method!r}: the port runs 'sweep' only "
-            "(the Jacobi solve is slice 3, with the adjoint)")
+            "(the Jacobi solve is slice 4)")
     if config.use_pallas == "interpret":
         raise ValueError("use_pallas='interpret' is a Pallas mode; the port "
                          "takes 'auto', 'on' or 'off'")

@@ -126,28 +126,37 @@ def _sweep_one_direction(T, floor, s, spacing: Sequence[float], axis: int,
     return out.movedim(1, dim)
 
 
+def on_active_fields(cycle: Callable, done: Optional[torch.Tensor],
+                     x: torch.Tensor, *operands):
+    """``cycle(x, *operands)`` on the fields whose ``done`` flag is clear;
+    done fields of ``x`` come back unchanged. Operands are batches or tuples
+    of batches with the leading field axis of ``x``."""
+    if done is None or not bool(done.any()):
+        return cycle(x, *operands)
+    if bool(done.all()):
+        return x.clone()
+    idx = torch.nonzero(~done).squeeze(1)
+    pick = [tuple(t[idx] for t in a) if isinstance(a, tuple) else a[idx]
+            for a in operands]
+    out = x.clone()
+    out[idx] = cycle(x[idx], *pick)
+    return out
+
+
 def sweep_cycle_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
                       done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One full cycle (both directions along every axis) on the fields whose
     ``done`` flag is clear; done fields come back unchanged. This is the
     plain version of the CUDA kernel ``csrc/sweep3d.cu``."""
-    active = None
-    if done is not None:
-        if bool(done.all()):
-            return T.clone()
-        if bool(done.any()):
-            active = torch.nonzero(~done).squeeze(1)
-    Ta, sa, fa = ((T, s, floor) if active is None
-                  else (T[active], s[active], floor[active]))
-    for axis in range(T.ndim - 1):
-        for reverse in (False, True):
-            Ta = _sweep_one_direction(Ta, fa, sa, spacing, axis, reverse,
-                                      n_inner)
-    if active is None:
+
+    def cycle(Ta, sa, fa):
+        for axis in range(T.ndim - 1):
+            for reverse in (False, True):
+                Ta = _sweep_one_direction(Ta, fa, sa, spacing, axis, reverse,
+                                          n_inner)
         return Ta
-    out = T.clone()
-    out[active] = Ta
-    return out
+
+    return on_active_fields(cycle, done, T, s, floor)
 
 
 CycleFn = Callable[..., torch.Tensor]

@@ -1,15 +1,18 @@
 """Traveltime tables + receiver interpolation -> predicted arrivals.
 
-Counterpart of ``mceik_tpu/forward/predict.py`` (the non-differentiable
-branch). A leading chain axis on the slowness is carried through: every
-chain's tables go into ONE batched solve of ``chains x table points``
-fields.
+Counterpart of ``mceik_tpu/forward/predict.py``. A leading chain axis on
+the slowness is carried through: every chain's tables go into ONE batched
+solve of ``chains x table points`` fields. With ``differentiable=True`` the
+solve is the implicit-adjoint one (``eikonal/adjoint.py``), so gradients
+reach the slowness; interpolation gradients flow through ``grid_sample``'s
+own backward.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mceik_tpu_torch.eikonal.adjoint import solve_eikonal_diff_batched
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import EikonalConfig
 from mceik_tpu_torch.grid import Grid, sample_linear
@@ -26,17 +29,14 @@ def traveltime_tables(slowness: torch.Tensor, table_xyz: torch.Tensor,
 
     Returns ``(n_tab,) + grid.shape``, or ``(C, n_tab) + grid.shape``.
     """
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable traveltimes (implicit adjoint) are slice 3 of "
-            "the port")
     lead = tuple(slowness.shape[:-grid.ndim])
     s = slowness.reshape((-1,) + grid.shape)
     C, n_tab = s.shape[0], table_xyz.shape[0]
     s_b = s.unsqueeze(1).expand((C, n_tab) + grid.shape)
     srcs = table_xyz.unsqueeze(0).expand(C, n_tab, grid.ndim)
-    T = solve_eikonal_batched(s_b.reshape((C * n_tab,) + grid.shape),
-                              srcs.reshape(C * n_tab, grid.ndim), grid, config)
+    solve = solve_eikonal_diff_batched if differentiable else solve_eikonal_batched
+    T = solve(s_b.reshape((C * n_tab,) + grid.shape),
+              srcs.reshape(C * n_tab, grid.ndim), grid, config)
     return T.reshape(lead + (n_tab,) + grid.shape)
 
 

@@ -1,1 +1,1 @@
-"""Parameters, data containers and the posterior."""
+"""Parameters, data containers, the posterior and the Laplace fit."""

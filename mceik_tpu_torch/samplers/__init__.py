@@ -1,1 +1,2 @@
-"""MCMC runner and samplers (adaptive Metropolis so far)."""
+"""MCMC runner and samplers: adaptive Metropolis (diagonal and full
+covariance) and preconditioned MALA."""

@@ -1,8 +1,8 @@
 """Dual-averaging step-size tuner (Hoffman & Gelman 2014).
 
 Counterpart of the tuner in ``mceik_tpu/samplers/hmc.py``; adaptive
-Metropolis uses it with gamma 0.1 and t0 20. HMC itself is slice 3 of the
-port.
+Metropolis, full-covariance AM and MALA use it with gamma 0.1 and t0 20.
+HMC itself is slice 4 of the port.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ from mceik_tpu_torch.io import config_io as tio
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
 C2 = os.path.join(REPO, "configs", "c2_checkerboard3d.json")
+C2_MALA = os.path.join(REPO, "configs", "c2_mala.json")
 TINY = ["grid.shape=[12,12,12]", "model.inv_shape=[3,3,3]", "data.n_src=2",
         "data.n_rec=3", "sampler.n_chains=2", "sampler.n_warmup=3",
         "sampler.n_samples=4", "sampler.thin=2", "io.log_every=2"]
@@ -60,7 +61,12 @@ def test_package_imports_without_jax():
     package out of sys.modules."""
     code = ("import sys\n"
             "import mceik_tpu_torch.api, mceik_tpu_torch.cli, "
-            "mceik_tpu_torch.convert, mceik_tpu_torch.eikonal.cuda_sweep\n"
+            "mceik_tpu_torch.convert, mceik_tpu_torch.eikonal.cuda_sweep, "
+            "mceik_tpu_torch.eikonal.cuda_transport, "
+            "mceik_tpu_torch.eikonal.adjoint, "
+            "mceik_tpu_torch.eikonal.adjoint_sweep, "
+            "mceik_tpu_torch.model.laplace, mceik_tpu_torch.samplers.am_full, "
+            "mceik_tpu_torch.samplers.mala\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mceik_tpu'))\n"
             "print(bad)\n")
@@ -82,6 +88,45 @@ def test_cli_runs_tiny_c2_on_cpu(capsys):
     assert all(np.isfinite(r["logpost_mean"]) for r in recs)
     assert all(0.0 <= r["accept"] <= 1.0 for r in recs[1:])
     assert any(x.startswith("[mceik-tpu-torch] am chains=2") for x in lines)
+
+
+def _records(lines):
+    return [json.loads(x.split("] ", 1)[1]) for x in lines
+            if x.startswith("[mceik] ")]
+
+
+def test_cli_runs_tiny_c2_am_full_on_cpu(capsys):
+    """Full-covariance AM through the CLI on the tiny config-2 workload."""
+    assert cli.main(["run", C2, *TINY, "sampler.algorithm=am_full",
+                     "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    recs = _records(lines)
+    assert [r["phase"] for r in recs] == ["init", "sample", "sample"]
+    assert all(np.isfinite(r["logpost_mean"]) for r in recs)
+    assert any(x.startswith("[mceik-tpu-torch] am_full chains=2") for x in lines)
+
+
+def test_cli_runs_tiny_c2_mala_on_cpu(capsys):
+    """configs/c2_mala.json cut to 16^3, a 4^3 basis and 2 chains, through
+    the CLI: the Laplace record (MAP trace rising), the init and sample
+    records with finite logposts, and a mala summary line. The chains start
+    at the MAP plus 0.3x Laplace jitter, so their logposts sit near the
+    trace's end."""
+    argv = ["run", C2_MALA, "grid.shape=[16,16,16]", "model.inv_shape=[4,4,4]",
+            "sampler.n_chains=2", "sampler.n_map_steps=3",
+            "sampler.n_warmup=2", "sampler.n_samples=4", "sampler.thin=2",
+            "io.log_every=2", "--device", "cpu"]
+    assert cli.main(argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    recs = _records(lines)
+    assert [r["phase"] for r in recs] == ["laplace", "init", "sample", "sample"]
+    lap = recs[0]
+    assert lap["logpost_last"] > lap["logpost_first"]
+    assert all(np.isfinite(r[k]) for r in recs[1:]
+               for k in ("logpost_mean", "logpost_min", "logpost_max"))
+    assert recs[1]["logpost_mean"] > lap["logpost_first"]
+    assert all(0.0 <= r["accept"] <= 1.0 for r in recs[2:])
+    assert any(x.startswith("[mceik-tpu-torch] mala chains=2") for x in lines)
 
 
 def test_cli_refuses_missing_card_and_later_slices():

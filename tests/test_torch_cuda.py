@@ -1,5 +1,5 @@
-"""Tests of the CUDA sweep kernel (``mceik_tpu_torch/csrc/sweep3d.cu``)
-against its plain PyTorch version. They need an NVIDIA GPU with nvcc and
+"""Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1, and
+``csrc/transport3d.cu``, K4) against their plain PyTorch versions. They need an NVIDIA GPU with nvcc and
 skip elsewhere. This file imports no JAX, so it runs on a machine without
 it; there, skip tests/conftest.py (which configures JAX):
 
@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from mceik_tpu_torch.eikonal import cuda_sweep
+from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
+from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
+                                                   transport_solve,
+                                                   transport_weights)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
                                            seed_source, sweep_cycle_plain)
@@ -91,3 +94,67 @@ def test_kernel_wrapper_checks_inputs(dev):
         k(T0, s, fl, g.spacing, 2, torch.ones(1, dtype=torch.bool,
                                                 device=dev)).cpu().numpy(),
         T0.cpu().numpy())
+
+
+def _transport_batch(dev, shape, spacing, srcs, seed=5):
+    """Converged fields from K1, their signed weights and random g."""
+    g_, s, srcs_t, _, _ = _batch(dev, shape, spacing, srcs, seed=seed)
+    T = solve_eikonal_batched(s, srcs_t, g_, EikonalConfig(tol=1e-5,
+                                                           max_iters=100))
+    _, frozen = seed_source(s, srcs_t, g_, 3.0)
+    ws = transport_weights(T, s, frozen, g_.spacing)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = 0.1 * torch.randn(T.shape, generator=gen, device=dev)
+    return ws, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing", [
+    ((24, 20, 16), (1.0, 1.2, 0.9)),
+    ((32, 32, 32), (1.0, 1.0, 1.0)),
+])
+def test_transport_kernel_cycle_matches_plain(dev, shape, spacing):
+    """One K4 launch equals one plain transport cycle bit for bit (the same
+    fp32 operations in the same order; bar 1e-5 * max|plain|), and a done
+    field passes through untouched."""
+    ws, g = _transport_batch(dev, shape, spacing,
+                             [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                              [12.0, 18.0, 9.0]])
+    done = torch.tensor([False, True, False], device=dev)
+    launches = cuda_transport.TRANSPORT3D.launches
+    out = cuda_transport.transport_cycle(g, g, ws, 2, done)
+    torch.cuda.synchronize()
+    assert cuda_transport.TRANSPORT3D.launches == launches + 1
+    ref = transport_cycle_plain(g, g, ws, 2, done)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out[1], g[1])
+    assert float((out[0] - g[0]).abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_transport_kernel_solve_matches_plain_solve(dev):
+    """A whole transport solve at tol 1e-7 through K4 equals the plain
+    solve on the card within 1e-5 * max|plain|."""
+    ws, g = _transport_batch(dev, (32, 24, 16), (1.0, 1.0, 1.0),
+                             [[2.0, 3.0, 4.0], [30.0, 20.0, 2.0],
+                              [15.0, 12.0, 8.0], [31.0, 23.0, 15.0]])
+    launches = cuda_transport.TRANSPORT3D.launches
+    out = transport_solve(g, ws, 1e-7, 100, 2,
+                          cycle=cuda_transport.transport_cycle)
+    assert cuda_transport.TRANSPORT3D.launches > launches
+    ref = transport_solve(g, ws, 1e-7, 100, 2)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_transport_kernel_wrapper_checks_inputs(dev):
+    k = cuda_transport.TRANSPORT3D
+    x = torch.zeros((1, 8, 8, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        k(x.double(), x, (x, x, x), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k(x, x, (x, x.transpose(1, 2), x), 2)
+    with pytest.raises(ValueError, match="shared"):
+        big = torch.zeros((1, 8, 120, 120), device=dev)
+        k(big, big, (big, big, big), 2)
