@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build of every kernel on the main paths from the sources in the
    checkout, one ``nvcc`` per source, all started together: K1, the 3-D
-   sweep cycle (``csrc/sweep3d.cu``), and K4, the adjoint transport cycle
-   (``csrc/transport3d.cu``);
+   sweep cycle (``csrc/sweep3d.cu``), K4, the adjoint transport cycle
+   (``csrc/transport3d.cu``), and K3, the 2-D sweep cycle
+   (``csrc/sweep2d.cu``);
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes and on edge cases (bar: max abs traveltime difference <= 1e-4);
 4. K4 against its plain version (bar: max abs difference <= 1e-5 of the
@@ -31,16 +32,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    trace rising, every logpost finite, the acceptance in (0.05, 0.99);
 7. the AM path of slice 1, ``configs/c2_checkerboard3d.json`` at 16
    chains, depth cut, counts reset and read the same way: K1 launched,
-   logposts finite and rising.
+   logposts finite and rising;
+8. K3 against its plain version on the card (bar: max abs traveltime
+   difference <= 1e-4), one cycle and a full solve each, on (a) config 4's
+   batch, 10,000 prior-drawn particles x 8 crosswell sources = 80,000
+   fields of 48^2 at tol 1e-3, (b) config 1's batch, 4 chains x 8 sources =
+   32 fields of 65^2 at tol 1e-4, and (c) an odd anisotropic non-square
+   batch with done flags set, whose fields must come back untouched; then
+   config 4's log-likelihood of the 10,000 particles through K3 and
+   through the plain solve (bar: rtol 1e-6);
+9. config 4's tempered SMC at full width (10,000 particles, 48^2 grid)
+   through ``mceik_tpu_torch.samplers.smc.run_smc_config``, the function
+   the CLI calls, with the ladder capped at 3 stages, counts reset and
+   read: K3 launched, beta strictly rising, each stage's ESS at its target
+   0.5 N (or beta = 1), log Z and acceptance finite;
+10. config 1's RWM at full width (4 chains, 65^2 grid) through
+   ``mceik_tpu_torch.cli.main(["run", "configs/c1_crosswell.json", ...])``
+   with the depth cut, counts reset and read: K3 launched, logposts finite
+   and rising, acceptance in (0.05, 0.99).
 
 The line before the last is a JSON object listing the kernels with their
-launch counts on the MALA path, errors and times; the last line is
+launch counts (K1 and K4 on the MALA path, K3 on the SMC path), errors and
+times; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository
 around this file; without either it fails before printing any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -53,7 +73,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 AM_CONFIG = os.path.join(REPO, "configs", "c2_checkerboard3d.json")
 MALA_CONFIG = os.path.join(REPO, "configs", "c2_mala.json")
+C1_CONFIG = os.path.join(REPO, "configs", "c1_crosswell.json")
+C4_CONFIG = os.path.join(REPO, "configs", "c4_smc.json")
 K1_BAR = 1e-4       # K1 vs plain, max abs traveltime difference
+K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
+LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
+SMC_STAGES = 3      # c4 ladder cap (depth cut)
 K4_REL_BAR = 1e-5   # K4 vs plain, max abs difference / max abs plain
 GRAD_REL_BAR = 1e-5  # kernel vs plain gradient, max abs diff / max abs
 FD_BAR = 0.1        # gradient vs central finite difference, relative
@@ -65,6 +90,9 @@ AM_ARGS = ["sampler.n_chains=16", "sampler.n_warmup=40",
 # 600 sampling steps.
 MALA_ARGS = ["sampler.n_map_steps=40", "sampler.n_warmup=30",
              "sampler.n_samples=60", "io.log_every=30"]
+# c1_crosswell.json at full width; depth cut from 2000 warmup and 6000
+# sampling steps.
+C1_ARGS = ["sampler.n_warmup=400", "sampler.n_samples=400", "io.log_every=200"]
 
 
 class _Tee(io.TextIOBase):
@@ -155,7 +183,7 @@ def _run_cli(cli, argv):
     return recs, lines, wall
 
 
-def _check_run(recs, label, n_warm):
+def _check_run(recs, label, n_warm, n_chains=N_CHAINS):
     """Init and sample records present, logposts finite; returns
     (init, sample records, steps after init, chain-steps/s overall, in the
     last segment)."""
@@ -169,10 +197,10 @@ def _check_run(recs, label, n_warm):
     if not all(math.isfinite(v) for v in vals):
         raise RuntimeError(f"{label}: non-finite logpost")
     steps = n_warm + samp[-1]["step"]
-    rate_all = steps * N_CHAINS / (samp[-1]["t"] - init[0]["t"])
+    rate_all = steps * n_chains / (samp[-1]["t"] - init[0]["t"])
     rate_last = float("nan")
     if len(samp) >= 2:
-        rate_last = ((samp[-1]["step"] - samp[-2]["step"]) * N_CHAINS
+        rate_last = ((samp[-1]["step"] - samp[-2]["step"]) * n_chains
                      / (samp[-1]["t"] - samp[-2]["t"]))
     return init[0], samp, steps, rate_all, rate_last
 
@@ -185,7 +213,7 @@ def main() -> int:
     from mceik_tpu_torch.datasets import make_dataset
     from mceik_tpu_torch.datasets.synthetic import (borehole_3d_geometry,
                                                     checkerboard_slowness)
-    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
+    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_sweep2d, cuda_transport
     from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
                                                        transport_solve,
                                                        transport_weights)
@@ -200,6 +228,7 @@ def main() -> int:
     from mceik_tpu_torch.model.posterior import (_gaussian_loglik,
                                                  build_posterior,
                                                  value_and_grad)
+    from mceik_tpu_torch.samplers.smc import run_smc_config
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
@@ -218,7 +247,8 @@ def main() -> int:
 
     # 2. Build.
     k1, k4 = cuda_sweep.SWEEP3D, cuda_transport.TRANSPORT3D
-    _build_all([k1, k4])
+    k3 = cuda_sweep2d.SWEEP2D
+    _build_all([k1, k4, k3])
 
     # 3. K1 vs plain, on the card.
     cfg = load_config(AM_CONFIG)
@@ -226,7 +256,7 @@ def main() -> int:
     on = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="on")
     off = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="off")
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {"sweep3d_cycle": [], "transport3d_cycle": []}
+    errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": []}
 
     def compare(label, s, srcs, g):
         launches0 = k1.launches
@@ -507,6 +537,162 @@ def main() -> int:
           f"{rate_all:.2f} chain-steps/s over {steps} steps x {N_CHAINS} "
           f"chains after init, {rate_last:.2f} in the last segment (cli wall "
           f"{wall:.1f} s)")
+
+    # 8. K3 vs plain, on the card.
+    def k3_pair(label, s, srcs, g, ecfg, done=None):
+        """One cycle and a full solve through K3 and the plain version;
+        returns the K3 cycle's and the plain cycle's ms per launch."""
+        T0, frozen = seed_source(s, srcs, g, ecfg.seed_radius)
+        fl = seed_floor(T0, frozen)
+        if done is None:
+            done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
+        launches0 = k3.launches
+        T1_k, ms_k = _timed(lambda: cuda_sweep.sweep_cycle(
+            T0, s, fl, g.spacing, ecfg.n_inner, done), reps=10)
+        if k3.launches == launches0:
+            raise RuntimeError(f"K3 {label}: the kernel was not launched")
+        T1_p, ms_p = _timed(lambda: sweep_cycle_plain(
+            T0, s, fl, g.spacing, ecfg.n_inner, done), reps=1)
+        err = float((T1_k - T1_p).abs().max())
+        kept = bool(torch.equal(T1_k[done], T0[done]))
+        on_ = dataclasses.replace(ecfg, use_pallas="on")
+        off_ = dataclasses.replace(ecfg, use_pallas="off")
+        T_k, ms_sk = _timed(lambda: solve_eikonal_batched(s, srcs, g, on_))
+        T_p, ms_sp = _timed(lambda: solve_eikonal_batched(s, srcs, g, off_))
+        err_s = float((T_k - T_p).abs().max())
+        finite = bool(torch.isfinite(T_k).all())
+        print(f"K3 compare {label}: B={T0.shape[0]} grid={g.shape} "
+              f"spacing={g.spacing}: one cycle max|kernel-plain| = "
+              f"{err:.3e}, ms per launch kernel {ms_k:.3f}, plain {ms_p:.3f}; "
+              f"solve at tol {ecfg.tol} max|kernel-plain| = {err_s:.3e}, ms "
+              f"per solve kernel {ms_sk:.3f}, plain {ms_sp:.3f}; done fields "
+              f"{int(done.sum())} untouched {kept}")
+        if not (finite and kept and err <= K3_BAR and err_s <= K3_BAR):
+            raise RuntimeError(f"K3 {label}: kernel disagrees with plain "
+                               f"(cycle {err}, solve {err_s}, finite "
+                               f"{finite}, done fields kept {kept})")
+        errs["sweep2d_cycle"].extend([err, err_s])
+        return ms_k, ms_p
+
+    # (a) config 4's batch: prior-drawn particles x its crosswell sources.
+    c4 = load_config(C4_CONFIG)
+    g4 = c4.grid.build()
+    data4, _ = make_dataset(g4, c4.data, c4.model, device=dev)
+    post4 = build_posterior(c4.model, data4, g4, c4.eikonal)
+    n_part = c4.sampler.n_particles
+    parts = post4.sample_prior(gen, n_part)
+    ecfg4 = EikonalConfig(tol=c4.eikonal.tol, max_iters=c4.eikonal.max_iters,
+                          n_inner=c4.eikonal.n_inner,
+                          seed_radius=c4.eikonal.seed_radius)
+    n_src4 = data4.src_xyz.shape[0]
+    s4 = post4.slowness_of(parts).unsqueeze(1).expand(
+        (n_part, n_src4) + g4.shape).reshape((-1,) + g4.shape).contiguous()
+    ms_k3, ms_k3_plain = k3_pair("a (c4 batch)", s4,
+                                 data4.src_xyz.repeat(n_part, 1), g4, ecfg4)
+    del s4
+    # (b) config 1's batch: 4 chains (an RWM start) x its sources.
+    c1 = load_config(C1_CONFIG)
+    g1 = c1.grid.build()
+    data1, _ = make_dataset(g1, c1.data, c1.model, device=dev)
+    post1 = build_posterior(c1.model, data1, g1, c1.eikonal)
+    u1 = post1.init_params(gen, c1.sampler.n_chains).u
+    n_src1 = data1.src_xyz.shape[0]
+    s1 = post1.slowness_of(Params(u=u1)).unsqueeze(1).expand(
+        (c1.sampler.n_chains, n_src1) + g1.shape).reshape((-1,) + g1.shape)
+    ecfg1 = EikonalConfig(tol=c1.eikonal.tol, max_iters=c1.eikonal.max_iters,
+                          n_inner=c1.eikonal.n_inner,
+                          seed_radius=c1.eikonal.seed_radius)
+    ms_k3_c1, ms_k3_c1_plain = k3_pair(
+        "b (c1 batch)", s1.contiguous(),
+        data1.src_xyz.repeat(c1.sampler.n_chains, 1), g1, ecfg1)
+    # (c) odd, anisotropic, non-square, with done flags.
+    g_o = Grid((37, 23), (1.0, 1.25))
+    u_o = 0.5 * torch.randn((7, 6, 6), generator=gen, device=dev)
+    s_o = slowness_from_u(u_o, g_o, torch.tensor(1.0, device=dev))
+    srcs_o = (0.05 + 0.9 * torch.rand((7, 2), generator=gen, device=dev)) \
+        * torch.tensor(g_o.extent, device=dev)
+    done_o = torch.tensor([False, True, False, False, True, False, True],
+                          device=dev)
+    k3_pair("c (odd anisotropic non-square, done flags)", s_o, srcs_o, g_o,
+            EikonalConfig(tol=1e-5, max_iters=100), done=done_o)
+
+    # Config 4's log-likelihood of the 10,000 particles, K3 vs plain.
+    post4_off = build_posterior(
+        c4.model, data4, g4,
+        apply_overrides(c4, ["eikonal.use_pallas=off"]).eikonal)
+    l3 = k3.launches
+    ll_k, ms_llk = _timed(lambda: post4.log_lik(parts))
+    if k3.launches == l3:
+        raise RuntimeError("c4 log-likelihood: K3 was not launched")
+    ll_p, ms_llp = _timed(lambda: post4_off.log_lik(parts))
+    ll_rel = float(((ll_k - ll_p).abs() / ll_p.abs()).max())
+    print(f"c4 log-likelihood of {n_part} prior particles: max relative "
+          f"|K3-plain| = {ll_rel:.3e} (bar {LL_RTOL}); ms per log_lik: K3 "
+          f"{ms_llk:.3f}, plain {ms_llp:.3f}")
+    if not bool(torch.isfinite(ll_k).all()) or not ll_rel <= LL_RTOL:
+        raise RuntimeError(f"c4 log-likelihood: K3 disagrees ({ll_rel})")
+    del parts, post4_off, ll_k, ll_p
+    torch.cuda.empty_cache()
+
+    # 9. Config 4's SMC at full width through the CLI's SMC entry point.
+    k1.launches = k4.launches = k3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_smc_config(c4, device="cuda", verbose=True,
+                         max_stages=SMC_STAGES)
+    smc_wall = time.perf_counter() - t0
+    smc_launches = k3.launches
+    if smc_launches <= 0:
+        raise RuntimeError("SMC path: K3 was never launched")
+    betas = res.betas
+    target = c4.sampler.ess_threshold * n_part
+    if not all(b1 > b0 for b0, b1 in zip(betas, betas[1:])):
+        raise RuntimeError(f"SMC path: beta not strictly rising ({betas})")
+    for b0, b1, e in zip(betas, betas[1:], res.ess_history[1:]):
+        floored = b1 - b0 <= 1.000001e-6
+        if not (b1 == 1.0 or floored or abs(e - target) <= 0.01 * target):
+            raise RuntimeError(f"SMC path: ESS {e} at beta {b1} is off its "
+                               f"target {target}")
+    if not (math.isfinite(res.log_evidence)
+            and all(math.isfinite(a) for a in res.accept_history)
+            and bool(torch.isfinite(res.state.log_lik).all())):
+        raise RuntimeError("SMC path: non-finite log Z, acceptance or "
+                           "log-likelihood")
+    per_stage = sum(res.stage_seconds) / res.n_stages
+    pms = (n_part * c4.sampler.n_mutation_steps * res.n_stages
+           / sum(res.stage_seconds))
+    print(f"SMC path: {smc_launches} K3 launches; {res.n_stages} stages, "
+          f"betas {betas}, ESS {res.ess_history}, acceptance "
+          f"{res.accept_history}, log Z {res.log_evidence:.3f}; "
+          f"{per_stage:.3f} s per stage (stages {res.stage_seconds}), "
+          f"{pms:.1f} particle-mutation-steps/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; run wall "
+          f"{smc_wall:.1f} s including data and the initial particles")
+
+    # 10. Config 1's RWM at full width through the CLI.
+    k1.launches = k4.launches = k3.launches = 0
+    recs, _, wall = _run_cli(cli, ["run", C1_CONFIG, *C1_ARGS])
+    rwm_launches = k3.launches
+    if rwm_launches <= 0:
+        raise RuntimeError("RWM path: K3 was never launched")
+    c1_run = apply_overrides(c1, C1_ARGS)
+    n1 = c1_run.sampler.n_chains
+    init, samp, steps, rate_all, rate_last = _check_run(
+        recs, "RWM path", c1_run.sampler.n_warmup, n1)
+    accept = sum(r["accept"] for r in samp) / len(samp)
+    if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+        raise RuntimeError(f"RWM path: logpost did not rise "
+                           f"({init['logpost_mean']} -> "
+                           f"{samp[-1]['logpost_mean']})")
+    if not 0.05 < accept < 0.99:
+        raise RuntimeError(f"RWM path: acceptance {accept} outside "
+                           "(0.05, 0.99)")
+    print(f"RWM path: {rwm_launches} K3 launches; logpost_mean "
+          f"{init['logpost_mean']} -> {samp[-1]['logpost_mean']}; acceptance "
+          f"{accept:.4f}; {rate_all:.2f} chain-steps/s over {steps} steps x "
+          f"{n1} chains after init, {rate_last:.2f} in the last segment "
+          f"(cli wall {wall:.1f} s); K3 ms per launch at c1's batch "
+          f"{ms_k3_c1:.3f}, plain {ms_k3_c1_plain:.3f}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -527,6 +713,15 @@ def main() -> int:
         "max_abs_err": max(errs["transport3d_cycle"]),
         "ms": ms_k4,
         "plain_ms": ms_k4_plain,
+    }, {
+        "name": "sweep2d_cycle",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/sweep2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:890",
+        "launches": smc_launches,
+        "max_abs_err": max(errs["sweep2d_cycle"]),
+        "ms": ms_k3,
+        "plain_ms": ms_k3_plain,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
 ``mceik_tpu_torch/eikonal/solve.py``) and is tested against it on the CPU.
 
 - ``eikonal``  — Godunov local solver, plain plane-sweep solve (the CPU path
-  and the kernel's reference), the hand-written CUDA sweep kernel
-  (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and the batched entry;
+  and the kernels' reference), the hand-written CUDA sweep kernels, 3-D
+  (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and 2-D
+  (``eikonal/cuda_sweep2d.py`` + ``csrc/sweep2d.cu``), and the batched entry;
   the differentiable solve through the implicit adjoint
   (``eikonal/adjoint.py``), its plain transport sweeps
   (``eikonal/adjoint_sweep.py``) and the CUDA transport kernel
@@ -15,10 +16,12 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
 - ``forward``  — traveltime tables and receiver interpolation.
 - ``model``    — parameters, data containers, the tomo posterior (with
   gradients and the Gauss-Newton Jacobian), the Laplace fit.
-- ``samplers`` — the generic MCMC runner, dual averaging, adaptive
-  Metropolis (diagonal and full covariance), preconditioned MALA.
+- ``samplers`` — the generic MCMC runner, dual averaging, random-walk
+  Metropolis, adaptive Metropolis (diagonal and full covariance),
+  preconditioned MALA, and tempered SMC (its own entry point).
+- ``dist``     — systematic resampling of a particle population.
 - ``diag``     — Welford moments, R-hat and ESS; a device profile of
-  sampler steps (``python -m mceik_tpu_torch.diag.profile``).
+  sampler steps or SMC stages (``python -m mceik_tpu_torch.diag.profile``).
 - ``io``       — JSON configs with dotted overrides, JSONL metrics.
 - ``api`` / ``cli`` — ``python -m mceik_tpu_torch run <config>``.
 

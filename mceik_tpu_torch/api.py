@@ -1,12 +1,13 @@
 """Top-level API: ``run(config, device) -> RunSummary``.
 
 Counterpart of ``mceik_tpu/api.py`` for the tomo posterior: config ->
-grid -> synthetic data -> posterior -> sampler (am, am_full, or mala with
-an optional Laplace preconditioner), sampled in segments of
+grid -> synthetic data -> posterior -> sampler (rwm, am, am_full, or mala
+with an optional Laplace preconditioner), sampled in segments of
 ``io.log_every`` steps with one JSONL metrics record per segment (plus one
 for the Laplace setup and one for the initial states), then pooled moments
 and diagnostics. Welford moments carry across segments, so segmentation
-never changes the statistics.
+never changes the statistics. SMC has its own entry point,
+``samplers.smc.run_smc_config``, which the CLI calls.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
 from mceik_tpu_torch.io.metrics import MetricsLogger
 from mceik_tpu_torch.model.posterior import build_posterior
-from mceik_tpu_torch.samplers import am, am_full, mala
+from mceik_tpu_torch.samplers import am, am_full, mala, rwm
 from mceik_tpu_torch.samplers.base import MCMCResult, init_chain_states, run_mcmc
 from mceik_tpu_torch.utils import tree_map
 
-SAMPLERS = ("am", "am_full", "mala")
+SAMPLERS = ("rwm", "am", "am_full", "mala")
 
 
 @dataclasses.dataclass
@@ -55,12 +56,20 @@ class RunSummary:
 def _check_supported(config: RunConfig) -> None:
     """Refuse, naming the later slice, what this slice of the port does not
     run yet."""
-    scfg, io, dist = config.sampler, config.io, config.dist
+    scfg = config.sampler
+    if scfg.algorithm == "smc":
+        raise ValueError("sampler 'smc' has its own entry point: "
+                         "samplers.smc.run_smc_config (what the CLI runs)")
     if scfg.algorithm not in SAMPLERS:
         raise NotImplementedError(
             f"sampler {scfg.algorithm!r}: the port runs {', '.join(SAMPLERS)} "
-            "(rwm and smc are slice 3, the 2-D slice; hmc, nuts and pcn "
-            "slice 4)")
+            "and smc (hmc, nuts and pcn are slice 4)")
+    check_run_options(config)
+
+
+def check_run_options(config: RunConfig) -> None:
+    """Refuse the io and dist options of later slices (every sampler)."""
+    io, dist = config.io, config.dist
     if io.checkpoint_path or io.resume or io.checkpoint_every:
         raise NotImplementedError("checkpointing and resume are slice 5 of "
                                   "the port")
@@ -68,6 +77,20 @@ def _check_supported(config: RunConfig) -> None:
         raise NotImplementedError("io.profile_dir: profiling is not ported")
     if dist.multihost or (dist.n_devices or 1) > 1:
         raise NotImplementedError("multi-device runs are slice 6 of the port")
+
+
+def prepare_device(device) -> torch.device:
+    """The run's device, with fp32 matmuls and convolutions (no TF32:
+    bf16/TF32 are too coarse at sigma ~ 0.01 s). A missing card raises
+    rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device (pass --device cpu to run on the CPU)")
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -80,7 +103,7 @@ def _step_size_of(hyper) -> float:
 
 def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
     """Returns ``(kernel, adapter, hyper, finalize_fn, states)``, with the
-    chains initialised. MALA carries cached gradients; with
+    chains initialised (RWM has no finalize). MALA carries cached gradients; with
     ``precondition="laplace"`` the MAP and Gauss-Newton covariance are
     computed once here and pinned, and the chains start at the MAP plus
     0.3x Laplace jitter."""
@@ -124,6 +147,9 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
                                                         adapt_cov=adapt_cov),
                 hyper, mala.finalize, states)
     states = init_chain_states(lp, posterior.init_params, gen, scfg.n_chains)
+    if scfg.algorithm == "rwm":
+        return (rwm.make_kernel(lp), rwm.make_adapter(scfg.target_accept),
+                rwm.init_hyper(scales, scfg.step_size), None, states)
     if scfg.algorithm == "am_full":
         return (am_full.make_kernel(lp), am_full.make_adapter(scfg.target_accept),
                 am_full.init_hyper(scales, scfg.step_size),
@@ -136,16 +162,7 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
 def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     """Sample the config's posterior on ``device`` ("cuda" or "cpu")."""
     _check_supported(config)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device (pass --device cpu to run on the CPU)")
-    # fp32 end to end: no TF32 anywhere (bf16/TF32 are too coarse at
-    # sigma ~ 0.01 s).
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+    device = prepare_device(device)
     grid = config.grid.build()
     data, truth = make_dataset(grid, config.data, config.model, device=device)
     scfg = config.sampler

@@ -2,6 +2,7 @@
 
 Usage:
     python -m mceik_tpu_torch run configs/c2_checkerboard3d.json [section.key=value ...] [--device cuda|cpu]
+    python -m mceik_tpu_torch run configs/c4_smc.json [...]   (SMC: samplers.smc.run_smc_config)
     python -m mceik_tpu_torch print-config configs/c2_checkerboard3d.json
 """
 
@@ -40,9 +41,12 @@ def main(argv=None) -> int:
         print()
         return 0
 
-    from mceik_tpu_torch.api import run
-
-    run(cfg, device=args.device)
+    if cfg.sampler.algorithm == "smc":
+        from mceik_tpu_torch.samplers.smc import run_smc_config
+        run_smc_config(cfg, device=args.device)
+    else:
+        from mceik_tpu_torch.api import run
+        run(cfg, device=args.device)
     return 0
 
 

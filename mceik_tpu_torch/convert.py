@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
 Each function takes objects of the JAX package (``Params``, ``TomoData``,
-``AMHyper``, ``AMFullHyper``, ``MALAState``) whose leaves are array-likes, reads them as numpy arrays, and
+``RWMHyper``, ``AMHyper``, ``AMFullHyper``, ``MALAState``, ``SMCState``)
+whose leaves are array-likes, reads them as numpy arrays, and
 returns the port's dataclasses on ``device``. Attribute access only: this
 module imports neither ``jax`` nor ``mceik_tpu``. The parity tests use it
 so that both packages compute on the same state.
@@ -19,6 +20,8 @@ from mceik_tpu_torch.samplers.am import AMHyper
 from mceik_tpu_torch.samplers.am_full import AMFullHyper
 from mceik_tpu_torch.samplers.hmc import DualAveraging
 from mceik_tpu_torch.samplers.mala import MALAState
+from mceik_tpu_torch.samplers.rwm import RWMHyper
+from mceik_tpu_torch.samplers.smc import SMCState
 
 
 def _t(x, device):
@@ -72,3 +75,19 @@ def mala_state_from_jax(s, device="cpu") -> MALAState:
     return MALAState(params=params_from_jax(s.params, device),
                      logpost=_t(s.logpost, device),
                      grad=params_from_jax(s.grad, device))
+
+
+def rwm_hyper_from_jax(h, device="cpu") -> RWMHyper:
+    return RWMHyper(log_step=_t(h.log_step, device),
+                    scales=params_from_jax(h.scales, device))
+
+
+def smc_state_from_jax(s, device="cpu") -> SMCState:
+    """A particle population: params, log prior, log likelihood and the
+    shared mutation log-step. Non-``Params`` particles (a bare array, as in
+    a toy target) come across as one tensor."""
+    params = (params_from_jax(s.params, device) if hasattr(s.params, "u")
+              else _t(s.params, device))
+    return SMCState(params=params, log_prior=_t(s.log_prior, device),
+                    log_lik=_t(s.log_lik, device),
+                    log_step=_t(s.log_step, device))

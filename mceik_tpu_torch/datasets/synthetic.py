@@ -1,7 +1,8 @@
-"""Synthetic truth model, acquisition geometry and noisy arrivals for the
-3-D checkerboard workload (config 2).
+"""Synthetic truth models, acquisition geometries and noisy arrivals for the
+2-D crosswell workloads (configs 1 and 4) and the 3-D checkerboard workload
+(config 2).
 
-Counterpart of the checkerboard3d pieces of
+Counterpart of the crosswell2d and checkerboard3d pieces of
 ``mceik_tpu/datasets/synthetic.py``. The noise comes from a CPU
 ``torch.Generator`` seeded with ``data.seed``, so a dataset is the same on
 every device (it is not JAX's noise: parity tests carry the JAX package's
@@ -41,6 +42,21 @@ def checkerboard_slowness(grid: Grid, cells: Tuple[int, ...],
     return background * torch.exp(amplitude * pattern)
 
 
+def crosswell_geometry(grid: Grid, n_src: int, n_rec: int,
+                       margin_frac: float = 0.08, device="cpu"):
+    """2-D crosswell: sources down one well, receivers down the other."""
+    if grid.ndim != 2:
+        raise ValueError(f"crosswell geometry needs a 2-D grid, got {grid.shape}")
+    (x0, y0), (ex, ey) = grid.origin, grid.extent
+    m = margin_frac
+    src = np.stack([np.full(n_src, x0 + m * ex),
+                    y0 + ey * np.linspace(m, 1 - m, n_src)], axis=-1)
+    rec = np.stack([np.full(n_rec, x0 + (1 - m) * ex),
+                    y0 + ey * np.linspace(m, 1 - m, n_rec)], axis=-1)
+    return (torch.as_tensor(src, dtype=torch.float32, device=device),
+            torch.as_tensor(rec, dtype=torch.float32, device=device))
+
+
 def borehole_3d_geometry(grid: Grid, n_src: int, n_rec: int, device="cpu"):
     """3-D crosswell-like: sources on one face, receivers on the opposite
     face, laid out on a coarse face grid."""
@@ -64,6 +80,25 @@ def borehole_3d_geometry(grid: Grid, n_src: int, n_rec: int, device="cpu"):
                             device=device))
 
 
+def _noisy(t_clean: torch.Tensor, noise: float, seed: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    eps = torch.randn(tuple(t_clean.shape), generator=gen, dtype=torch.float32)
+    return t_clean + noise * eps.to(t_clean.device)
+
+
+def crosswell_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
+                      eik: EikonalConfig = EikonalConfig(), device="cpu"):
+    """Configs 1 and 4: 2-D crosswell arrivals through a checkerboard truth.
+    Returns ``(TomoData, s_true)``."""
+    s_true = checkerboard_slowness(grid, dcfg.checker_cells,
+                                   dcfg.checker_amplitude,
+                                   mcfg.background_slowness, device=device)
+    src, rec = crosswell_geometry(grid, dcfg.n_src, dcfg.n_rec, device=device)
+    t_clean = predict_tomo(s_true, src, rec, grid, eik)
+    return (TomoData(src_xyz=src, rec_xyz=rec,
+                     t_obs=_noisy(t_clean, dcfg.noise, dcfg.seed)), s_true)
+
+
 def checkerboard3d_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
                            eik: EikonalConfig = EikonalConfig(),
                            device="cpu"):
@@ -75,20 +110,19 @@ def checkerboard3d_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
     src, rec = borehole_3d_geometry(grid, dcfg.n_src, dcfg.n_rec,
                                     device=device)
     t_clean = predict_tomo(s_true, src, rec, grid, eik)
-    gen = torch.Generator().manual_seed(dcfg.seed)
-    noise = torch.randn(tuple(t_clean.shape), generator=gen,
-                        dtype=torch.float32).to(device)
-    t_obs = t_clean + dcfg.noise * noise
-    return TomoData(src_xyz=src, rec_xyz=rec, t_obs=t_obs), s_true
+    return (TomoData(src_xyz=src, rec_xyz=rec,
+                     t_obs=_noisy(t_clean, dcfg.noise, dcfg.seed)), s_true)
 
 
 def make_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
                  eik: EikonalConfig = EikonalConfig(), device="cpu"):
     """Dispatch on ``DataCfg.dataset``; returns ``(data, truth_dict)``."""
-    if dcfg.dataset == "checkerboard3d":
-        data, s_true = checkerboard3d_dataset(grid, dcfg, mcfg, eik, device)
+    by_name = {"crosswell2d": crosswell_dataset,
+               "checkerboard3d": checkerboard3d_dataset}
+    if dcfg.dataset in by_name:
+        data, s_true = by_name[dcfg.dataset](grid, dcfg, mcfg, eik, device)
         return data, {"slowness": s_true}
-    later = {"crosswell2d": "slice 3", "checkerboard3d_volume": "slice 4",
+    later = {"checkerboard3d_volume": "slice 4",
              "events3d": "slice 4", "events3d_volume": "slice 4",
              "file": "slice 5", "csv": "slice 5"}
     if dcfg.dataset in later:

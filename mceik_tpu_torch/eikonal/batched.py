@@ -28,7 +28,8 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
       srcs: ``(B, D)`` physical source coordinates.
 
     Returns ``(B,) + grid.shape`` fp32 traveltimes. CUDA tensors are swept
-    by the CUDA kernel and CPU tensors by the plain sweep, unless
+    by the CUDA kernel (K1 on a 3-D grid, K3 on a 2-D one) and CPU tensors
+    by the plain sweep, unless
     ``config.use_pallas == "off"`` asks for the plain sweep on any device.
     """
     if config.method != "sweep":

@@ -16,7 +16,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,18 +40,27 @@ def _nvcc(source: Path) -> str:
     return path
 
 
-def check_fields(name: str, fields, n_planes: int) -> torch.device:
+def plane_smem(n_planes: int) -> Callable[[Tuple[int, ...]], int]:
+    """Shared memory of a 3-D kernel that holds ``n_planes`` fp32 buffers of
+    the largest cross-section of an ``(nx, ny, nz)`` grid (K1, K4)."""
+    def smem(grid):
+        n0, n1, n2 = grid
+        return n_planes * 4 * max(n1 * n2, n0 * n2, n0 * n1)
+    return smem
+
+
+def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int],
+                 ndim: int = 3) -> torch.device:
     """Validate a kernel's field operands before their pointers go to C:
     ``fields`` are ``(label, tensor)`` pairs that must all be contiguous
-    fp32 ``(B, nx, ny, nz)`` CUDA tensors of one shape on one device, and
-    ``n_planes`` fp32 planes of the largest cross-section must fit in a
-    block's shared memory. Returns the device; raises ValueError."""
+    fp32 CUDA tensors of one ``(B,) + grid`` shape with ``ndim`` grid axes
+    on one device, and ``smem_bytes(grid)``, the shared memory one block
+    needs, must fit. Returns the device; raises ValueError."""
     ref = fields[0][1]
     dev = ref.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
-    if ref.ndim != 4:
-        raise ValueError(f"{name} kernel takes a (B, nx, ny, nz) batch, got "
+    if ref.ndim != ndim + 1:
+        axes = ("nx, ny, nz" if ndim == 3 else "n0, n1")
+        raise ValueError(f"{name} kernel takes a (B, {axes}) batch, got "
                          f"shape {tuple(ref.shape)}")
     for label, x in fields:
         if x.device != dev or x.dtype != torch.float32:
@@ -60,13 +69,13 @@ def check_fields(name: str, fields, n_planes: int) -> torch.device:
         if x.shape != ref.shape or not x.is_contiguous():
             raise ValueError(f"{label}: need a contiguous {tuple(ref.shape)} "
                              f"tensor, got {tuple(x.shape)}")
-    _, n0, n1, n2 = ref.shape
-    max_plane = max(n1 * n2, n0 * n2, n0 * n1)
-    if n_planes * 4 * max_plane > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"grid {(n0, n1, n2)}: {n_planes} fp32 plane buffers of "
-            f"{max_plane} nodes exceed {MAX_SMEM_BYTES} bytes of shared "
-            f"memory")
+    grid = tuple(ref.shape[1:])
+    need = smem_bytes(grid)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"grid {grid}: {name} needs {need} bytes of shared "
+                         f"memory per block, more than {MAX_SMEM_BYTES}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
     return dev
 
 
@@ -81,14 +90,25 @@ def done_flags(done: Optional[torch.Tensor], B: int,
     return done
 
 
+def launch_threads(shape) -> int:
+    """Threads of a one-CTA-per-field launch over a ``(B,) + grid`` batch:
+    one per node of the largest plane of a 3-D grid, one per node of the
+    longest line of a 2-D grid, rounded up to whole warps."""
+    grid = tuple(shape[1:])
+    if len(grid) == 3:
+        n0, n1, n2 = grid
+        nodes = max(n1 * n2, n0 * n2, n0 * n1)
+    else:
+        nodes = max(grid)
+    return min(MAX_THREADS, (nodes + 31) // 32 * 32)
+
+
 def launch_config(shape, dev: torch.device):
     """``(threads per block, device index, stream)`` for a one-CTA-per-field
-    launch over a ``(B, nx, ny, nz)`` batch."""
-    _, n0, n1, n2 = shape
-    max_plane = max(n1 * n2, n0 * n2, n0 * n1)
-    threads = min(MAX_THREADS, (max_plane + 31) // 32 * 32)
+    launch over a ``(B,) + grid`` batch."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return threads, index, torch.cuda.current_stream(dev).cuda_stream
+    return (launch_threads(shape), index,
+            torch.cuda.current_stream(dev).cuda_stream)
 
 
 class NvccKernel:

@@ -1,4 +1,6 @@
-"""CUDA sweep kernel K1: build, bind and launch ``csrc/sweep3d.cu``.
+"""CUDA sweep kernel K1: build, bind and launch ``csrc/sweep3d.cu``; and
+the sweep-cycle dispatch of every batch to its kernel (K1 for 3-D fields,
+K3, ``eikonal/cuda_sweep2d.py``, for 2-D fields).
 
 Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch runs one
 full sweep cycle (axes 0, 1, 2, each forward then backward) on every field
@@ -24,7 +26,8 @@ import torch
 
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, NvccKernel,
                                                 check_fields, done_flags,
-                                                launch_config)
+                                                launch_config, plane_smem)
+from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
 from mceik_tpu_torch.eikonal.solve import sweep_cycle_plain
 
 SOURCE = CSRC / "sweep3d.cu"
@@ -46,7 +49,7 @@ class Sweep3dKernel(NvccKernel):
                  done: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One cycle on a copy of ``T``; returns the swept batch."""
         dev = check_fields("sweep3d", [("T", T), ("s", s), ("floor", floor)],
-                           N_PLANES)
+                           plane_smem(N_PLANES))
         B, n0, n1, n2 = T.shape
         done = done_flags(done, B, dev)
         if len(spacing) != 3 or n_inner < 0:
@@ -77,15 +80,14 @@ def sweep_cycle(T: torch.Tensor, s: torch.Tensor, floor: torch.Tensor,
                 done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One full sweep cycle on the fields whose ``done`` flag is clear.
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version
+    CUDA tensors go to the kernel, K3 for a ``(B, n0, n1)`` batch and K1
+    for a ``(B, nx, ny, nz)`` one; CPU tensors to the plain version
     (``solve.sweep_cycle_plain``). Any other device raises.
     """
     if T.device.type == "cpu":
         return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
     if T.device.type == "cuda":
-        if T.ndim != 4:
-            raise NotImplementedError(
-                "2-D fields on CUDA need the 2-D sweep kernel (K3), which "
-                "is slice 3 of the port")
+        if T.ndim == 3:
+            return SWEEP2D(T, s, floor, spacing, n_inner, done)
         return SWEEP3D(T, s, floor, spacing, n_inner, done)
     raise ValueError(f"no sweep for device {T.device}")

@@ -24,7 +24,7 @@ import torch
 from mceik_tpu_torch.eikonal.adjoint_sweep import transport_cycle_plain
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, NvccKernel,
                                                 check_fields, done_flags,
-                                                launch_config)
+                                                launch_config, plane_smem)
 
 SOURCE = CSRC / "transport3d.cu"
 # Shared-memory planes per CTA: base, lam (double-buffered), two weights.
@@ -51,7 +51,7 @@ class Transport3dKernel(NvccKernel):
             "transport3d",
             [("lam", lam), ("g", g)] + [(f"w{d}", w)
                                         for d, w in enumerate(wsigned)],
-            N_PLANES)
+            plane_smem(N_PLANES))
         B, n0, n1, n2 = lam.shape
         done = done_flags(done, B, dev)
         if n_inner < 0:
@@ -87,6 +87,6 @@ def transport_cycle(lam: torch.Tensor, g: torch.Tensor,
         if lam.ndim != 4:
             raise NotImplementedError(
                 "2-D transport on CUDA needs a 2-D transport kernel, which "
-                "the port does not have yet")
+                "is slice 4 of the port")
         return TRANSPORT3D(lam, g, wsigned, n_inner, done)
     raise ValueError(f"no transport cycle for device {lam.device}")

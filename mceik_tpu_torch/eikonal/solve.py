@@ -3,8 +3,9 @@ plane-sweep solve.
 
 Counterpart of ``mceik_tpu/eikonal/solve.py``. Everything works on an
 explicit batch of fields ``(B,) + grid.shape``. The plain sweep here is the
-solve the port runs on CPU tensors, and the reference that the CUDA kernel
-(``eikonal/cuda_sweep.py``) is held against on the card.
+solve the port runs on CPU tensors, and the reference that the CUDA kernels
+(K1 for 3-D and K3 for 2-D batches, ``eikonal/cuda_sweep.py``) are held
+against on the card.
 
 One sweep cycle: for each axis, march the planes low -> high, then
 high -> low. A plane update takes ``a_ax = min(T[i-1], T[i+1])`` (``T[i-1]``
@@ -147,7 +148,8 @@ def sweep_cycle_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
                       done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One full cycle (both directions along every axis) on the fields whose
     ``done`` flag is clear; done fields come back unchanged. This is the
-    plain version of the CUDA kernel ``csrc/sweep3d.cu``."""
+    plain version of the CUDA kernels ``csrc/sweep3d.cu`` (3-D batches) and
+    ``csrc/sweep2d.cu`` (2-D batches)."""
 
     def cycle(Ta, sa, fa):
         for axis in range(T.ndim - 1):

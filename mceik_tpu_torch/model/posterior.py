@@ -49,6 +49,7 @@ class PosteriorModel:
     prior_scales: Params          # per-leaf natural scales (no chain axis)
     log_prior: Callable[[Params], torch.Tensor]
     log_lik: Callable[[Params], torch.Tensor]
+    sample_prior: Callable[..., Params]                 # (gen, n) exact prior draws
     # Params of ONE chain (leading axis 1) -> (t_pred (n_obs,), J (n_obs, d))
     # with J = d t_pred / d params, raveled. None unless differentiable.
     jacobian: Optional[Callable[[Params], Tuple[torch.Tensor, torch.Tensor]]] = None
@@ -115,6 +116,13 @@ def build_posterior(cfg: ModelCfg, data: TomoData, grid: Grid,
             device=device)
         return Params(u=u)
 
+    def sample_prior(gen: torch.Generator, n: int) -> Params:
+        """``n`` exact draws from the prior, ``u ~ N(0, prior_sigma_u^2 I)``
+        (SMC's initial particles)."""
+        return Params(u=cfg.prior_sigma_u * torch.randn(
+            (n,) + inv_shape, generator=gen, dtype=torch.float32,
+            device=device))
+
     def jacobian(params: Params):
         """Every row of ``d t_pred / d u`` from ONE forward solve and ONE
         transport batch: row ``k`` is the VJP of observation ``k`` alone,
@@ -157,7 +165,7 @@ def build_posterior(cfg: ModelCfg, data: TomoData, grid: Grid,
         logpost=logpost, init_params=init_params, slowness_of=slowness_of,
         predict=predict, grid=grid, cfg=cfg, n_dim=n_dim,
         prior_scales=prior_scales, log_prior=log_prior, log_lik=log_lik,
-        jacobian=jacobian if differentiable else None)
+        sample_prior=sample_prior, jacobian=jacobian if differentiable else None)
 
 
 def value_and_grad(logpost_fn: Callable[[Params], torch.Tensor]):

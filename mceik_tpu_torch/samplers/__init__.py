@@ -1,2 +1,2 @@
-"""MCMC runner and samplers: adaptive Metropolis (diagonal and full
-covariance) and preconditioned MALA."""
+"""MCMC runner and samplers: random-walk Metropolis, adaptive Metropolis
+(diagonal and full covariance), preconditioned MALA, and tempered SMC."""
