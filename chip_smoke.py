@@ -49,11 +49,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 10. config 1's RWM at full width (4 chains, 65^2 grid) through
    ``mceik_tpu_torch.cli.main(["run", "configs/c1_crosswell.json", ...])``
    with the depth cut, counts reset and read: K3 launched, logposts finite
-   and rising, acceptance in (0.05, 0.99).
+   and rising, acceptance in (0.05, 0.99);
+11. K1 and K4 at config 3's batch, 8 prior-drawn chains x 16 surface
+   stations = 128 fields of 48x48x32 (the non-cube route whose TPU cycle is
+   ``sweep_axes01_fused`` + ``sweep_axis0``): K1 one cycle and a solve at
+   the config's tol against the plain versions (bar 1e-4 absolute, cycles
+   per solve printed), K4 one cycle and a solve with cotangents of config
+   3's joint log-likelihood (bar 1e-5 of the plain max abs);
+12. the joint gradient of 8 chains (u, hypo_raw, t0) through K1 + K4
+   against the plain solves on the card (bar 1e-5 of each leaf's max abs)
+   and against a central finite difference along one random direction of
+   all three leaves together (bar: relative error < 0.1);
+13. config 3's NUTS at full width (8 chains, 48x48x32 grid, 10x10x8 basis,
+   12 events, 16 stations) through ``mceik_tpu_torch.cli.main(["run",
+   "configs/c3_joint_events.json", ...])`` with only the depth cut (warmup,
+   samples, max tree depth), counts reset and read: K1 and K4 launched,
+   logposts finite and rising; mean tree depth, divergences and the
+   acceptance statistic printed;
+14. a short HMC run on config 3 through the CLI (8 leapfrog steps, 6
+   warmup steps for the dual averaging to pull the config's step down): K1
+   and K4 launched, logposts finite and rising.
 
 The line before the last is a JSON object listing the kernels with their
-launch counts (K1 and K4 on the MALA path, K3 on the SMC path), errors and
-times; the last line is
+launch counts (K1 and K4 on the MALA path, K3 on the SMC path; K1's and
+K4's config-3 NUTS counts and times and K3's config-1 times beside),
+errors, times and bounds (the larger of
+bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, counted from
+each kernel's source at the shapes timed); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository
 around this file; without either it fails before printing any result.
 """
@@ -75,6 +97,7 @@ AM_CONFIG = os.path.join(REPO, "configs", "c2_checkerboard3d.json")
 MALA_CONFIG = os.path.join(REPO, "configs", "c2_mala.json")
 C1_CONFIG = os.path.join(REPO, "configs", "c1_crosswell.json")
 C4_CONFIG = os.path.join(REPO, "configs", "c4_smc.json")
+C3_CONFIG = os.path.join(REPO, "configs", "c3_joint_events.json")
 K1_BAR = 1e-4       # K1 vs plain, max abs traveltime difference
 K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
 LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
@@ -93,6 +116,46 @@ MALA_ARGS = ["sampler.n_map_steps=40", "sampler.n_warmup=30",
 # c1_crosswell.json at full width; depth cut from 2000 warmup and 6000
 # sampling steps.
 C1_ARGS = ["sampler.n_warmup=400", "sampler.n_samples=400", "io.log_every=200"]
+# c3_joint_events.json at full width; depth cut from 500 warmup and 1000
+# sampling steps at max tree depth 6.
+C3_NUTS_ARGS = ["sampler.n_warmup=8", "sampler.n_samples=8",
+                "sampler.max_tree_depth=4", "io.log_every=4"]
+C3_HMC_ARGS = ["sampler.algorithm=hmc", "sampler.n_leapfrog=8",
+               "sampler.n_warmup=6", "sampler.n_samples=4", "io.log_every=4"]
+
+# The card's peaks (H100 SXM data sheet, at 700 W): fp32 outside the tensor
+# cores and HBM bandwidth.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _bound(nodes, bytes_per_node, ops_per_node):
+    """(ms, "bytes" or "operations"): the least time for one launch, each
+    input read once and the output written once, against the ops its
+    source does per node (counted below)."""
+    t_b = nodes * bytes_per_node / PEAK_BYTES * 1e3
+    t_o = nodes * ops_per_node / PEAK_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# Operations per node and cycle, counted from the sources for the
+# isotropic local solves these grids take (every axis, both directions,
+# n_inner Jacobi steps, plus the axial minimum once per pass):
+# K1 (sweep3d.cu): local_iso ~38 (sorting 6, t1 2, t2 9, t3 15, selects 4),
+#   neighbour minima 6, the min/max with T and the floor 2 -> 46 per step;
+# K3 (sweep2d.cu): local2 ~17, line minimum 3, min/max 2 -> 22 per step;
+# K4 (transport3d.cu): the axial inflow and base 6 per pass, 12 per step
+#   (four guarded weight x lam products and their sum).
+def _k1_ops(n_inner):
+    return 6 * (46 * n_inner + 1)
+
+
+def _k3_ops(n_inner):
+    return 4 * (22 * n_inner + 1)
+
+
+def _k4_ops(n_inner):
+    return 6 * (6 + 12 * n_inner)
 
 
 class _Tee(io.TextIOBase):
@@ -221,10 +284,11 @@ def main() -> int:
     from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
                                                seed_source, sweep_cycle_plain,
                                                sweep_solve)
-    from mceik_tpu_torch.forward.predict import interp_tables
+    from mceik_tpu_torch.forward.predict import interp_tables, predict_events
     from mceik_tpu_torch.grid import Grid
     from mceik_tpu_torch.io.config_io import apply_overrides, load_config
-    from mceik_tpu_torch.model.params import Params, slowness_from_u
+    from mceik_tpu_torch.model.params import (Params, box_from_raw,
+                                              slowness_from_u)
     from mceik_tpu_torch.model.posterior import (_gaussian_loglik,
                                                  build_posterior,
                                                  value_and_grad)
@@ -693,17 +757,203 @@ def main() -> int:
           f"{n1} chains after init, {rate_last:.2f} in the last segment "
           f"(cli wall {wall:.1f} s); K3 ms per launch at c1's batch "
           f"{ms_k3_c1:.3f}, plain {ms_k3_c1_plain:.3f}")
+    print(f"phases 1-10 wall {time.perf_counter() - t_start:.1f} s")
+
+    # 11. K1 and K4 at config 3's batch: prior-drawn chains x stations.
+    c3 = load_config(C3_CONFIG)
+    g3 = c3.grid.build()
+    data3, _ = make_dataset(g3, c3.data, c3.model, device=dev)
+    post3 = build_posterior(c3.model, data3, g3, c3.eikonal,
+                            differentiable=True)
+    n3, n_sta = c3.sampler.n_chains, data3.sta_xyz.shape[0]
+    p3 = post3.sample_prior(gen, n3)
+    s3 = post3.slowness_of(p3).unsqueeze(1).expand(
+        (n3, n_sta) + g3.shape).reshape((-1,) + g3.shape).contiguous()
+    srcs3 = data3.sta_xyz.repeat(n3, 1)
+    ecfg3 = EikonalConfig(tol=c3.eikonal.tol, max_iters=c3.eikonal.max_iters,
+                          n_inner=c3.eikonal.n_inner,
+                          seed_radius=c3.eikonal.seed_radius)
+    T0_3, frozen3 = seed_source(s3, srcs3, g3, ecfg3.seed_radius)
+    fl3 = seed_floor(T0_3, frozen3)
+    done3 = torch.zeros(T0_3.shape[0], dtype=torch.bool, device=dev)
+    l1 = k1.launches
+    T1k3, ms_k1_c3 = _timed(lambda: cuda_sweep.sweep_cycle(
+        T0_3, s3, fl3, g3.spacing, ecfg3.n_inner, done3), reps=10)
+    if k1.launches == l1:
+        raise RuntimeError("K1 c3 cycle: the kernel was not launched")
+    T1p3, ms_k1_c3_plain = _timed(lambda: sweep_cycle_plain(
+        T0_3, s3, fl3, g3.spacing, ecfg3.n_inner, done3))
+    err_c3 = float((T1k3 - T1p3).abs().max())
+    on3 = dataclasses.replace(ecfg3, use_pallas="on")
+    off3 = dataclasses.replace(ecfg3, use_pallas="off")
+    l1 = k1.launches
+    T3, ms_s3k = _timed(lambda: solve_eikonal_batched(s3, srcs3, g3, on3))
+    cycles3 = (k1.launches - l1) / 2     # the warm-up call and the timed one
+    T3p, ms_s3p = _timed(lambda: solve_eikonal_batched(s3, srcs3, g3, off3))
+    err_s3 = float((T3 - T3p).abs().max())
+    print(f"K1 compare c3 batch: B={T0_3.shape[0]} grid={g3.shape}: one cycle "
+          f"max|kernel-plain| = {err_c3:.3e}, ms per launch kernel "
+          f"{ms_k1_c3:.3f}, plain {ms_k1_c3_plain:.3f}; solve at tol "
+          f"{ecfg3.tol} max|kernel-plain| = {err_s3:.3e}, {cycles3:.0f} "
+          f"cycles, ms per solve kernel {ms_s3k:.3f}, plain {ms_s3p:.3f}")
+    if not (bool(torch.isfinite(T3).all()) and err_c3 <= K1_BAR
+            and err_s3 <= K1_BAR):
+        raise RuntimeError(f"K1 c3: kernel disagrees with plain (cycle "
+                           f"{err_c3}, solve {err_s3})")
+    errs["sweep3d_cycle"].extend([err_c3, err_s3])
+
+    T3g = T3.clone().requires_grad_(True)
+    resid3 = data3.t_obs - predict_events(
+        T3g.reshape((n3, n_sta) + g3.shape), box_from_raw(p3.hypo_raw, g3),
+        p3.t0, g3)
+    (ct3,) = torch.autograd.grad(_gaussian_loglik(
+        resid3, torch.full_like(resid3, c3.model.sigma), None).sum(), T3g)
+    ws3 = transport_weights(T3, s3, frozen3, g3.spacing)
+    l4 = k4.launches
+    lam1k3, ms_k4_c3 = _timed(lambda: cuda_transport.transport_cycle(
+        ct3, ct3, ws3, ecfg3.n_inner, done3), reps=10)
+    if k4.launches == l4:
+        raise RuntimeError("K4 c3 cycle: the kernel was not launched")
+    lam1p3, ms_k4_c3_plain = _timed(lambda: transport_cycle_plain(
+        ct3, ct3, ws3, ecfg3.n_inner, done3))
+    print(f"K4 one cycle, c3 batch B={ct3.shape[0]} grid={g3.shape}: ms per "
+          f"launch: kernel {ms_k4_c3:.3f}, plain {ms_k4_c3_plain:.3f}")
+    k4_check("c3 batch (joint log-likelihood cotangents, one cycle)",
+             lam1k3, lam1p3)
+    k4_check("c3 batch (joint log-likelihood cotangents, solve)",
+             *k4_solve_pair("c3", ct3, ws3, ecfg3.tol, ecfg3.max_iters))
+    del T1k3, T1p3, T3p, T3g, lam1k3, lam1p3, ws3
+
+    # 12. The joint gradient of 8 chains, K1 + K4 against the plain solves,
+    # and against a central finite difference.
+    post3_p = build_posterior(
+        c3.model, data3, g3,
+        apply_overrides(c3, ["eikonal.use_pallas=off"]).eikonal,
+        differentiable=True)
+    l1, l4 = k1.launches, k4.launches
+    (lp3k, g3k), ms_g3k = _timed(lambda: value_and_grad(post3.logpost)(p3))
+    if k1.launches == l1 or k4.launches == l4:
+        raise RuntimeError("c3 gradient: a kernel was not launched")
+    (lp3p, g3p), ms_g3p = _timed(lambda: value_and_grad(post3_p.logpost)(p3))
+    leaves = ("u", "hypo_raw", "t0")
+    rel3 = {}
+    for f in leaves:
+        a, b = getattr(g3k, f), getattr(g3p, f)
+        rel3[f] = float((a - b).abs().max()) / float(b.abs().max())
+        if not bool(torch.isfinite(a).all()) or not rel3[f] <= GRAD_REL_BAR:
+            raise RuntimeError(f"c3 gradient {f}: kernels disagree with "
+                               f"plain ({rel3[f]})")
+    print(f"c3 joint gradient, {n3} chains: max|kernel-plain| / max|grad| "
+          f"{rel3}; logpost max|diff| {float((lp3k - lp3p).abs().max()):.3e}; "
+          f"ms per value_and_grad: kernels {ms_g3k:.3f}, plain {ms_g3p:.3f}")
+    post3_fd = build_posterior(
+        c3.model, data3, g3,
+        apply_overrides(c3, ["eikonal.tol=1e-6",
+                             "eikonal.max_iters=300"]).eikonal,
+        differentiable=True)
+    _, g3fd = value_and_grad(post3_fd.logpost)(p3)
+    vdir = {f: torch.randn(getattr(p3, f).shape, generator=gen, device=dev)
+            for f in leaves}
+    norm = torch.sqrt(sum(v.flatten(1).pow(2).sum(1) for v in vdir.values()))
+    vdir = {f: v / norm.reshape((-1,) + (1,) * (v.ndim - 1))
+            for f, v in vdir.items()}
+    eps = 1e-3
+    shifted = lambda sgn: Params(**{f: getattr(p3, f) + sgn * eps * vdir[f]
+                                    for f in leaves})
+    fd3 = (post3_fd.logpost(shifted(1.0))
+           - post3_fd.logpost(shifted(-1.0))) / (2 * eps)
+    ad3 = sum((getattr(g3fd, f) * vdir[f]).flatten(1).sum(1) for f in leaves)
+    rel_fd3 = float((ad3.sum() - fd3.sum()).abs()
+                    / torch.maximum(ad3.sum().abs(), fd3.sum().abs()))
+    worst3 = float(((ad3 - fd3).abs()
+                    / torch.maximum(ad3.abs(), fd3.abs())).max())
+    print(f"c3 joint gradient vs central finite difference along one random "
+          f"direction of u, hypo_raw and t0 of all {n3} chains at tol 1e-6: "
+          f"relative error {rel_fd3:.3e} (bar {FD_BAR}); worst single chain "
+          f"{worst3:.3e}")
+    if not rel_fd3 < FD_BAR:
+        raise RuntimeError(f"c3 gradient: finite difference disagrees "
+                           f"({rel_fd3})")
+    del post3_p, post3_fd, g3fd
+    torch.cuda.empty_cache()
+
+    # 13. Config 3's NUTS at full width through the CLI.
+    k1.launches = k4.launches = k3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    recs, _, wall = _run_cli(cli, ["run", C3_CONFIG, *C3_NUTS_ARGS])
+    nuts_launches = {"sweep3d_cycle": k1.launches,
+                     "transport3d_cycle": k4.launches}
+    if min(nuts_launches.values()) <= 0:
+        raise RuntimeError(f"NUTS path: a kernel was never launched "
+                           f"({nuts_launches})")
+    c3_nuts = apply_overrides(c3, C3_NUTS_ARGS)
+    init, samp, steps, rate_all, rate_last = _check_run(
+        recs, "NUTS path", c3_nuts.sampler.n_warmup, n3)
+    if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+        raise RuntimeError(f"NUTS path: logpost did not rise "
+                           f"({init['logpost_mean']} -> "
+                           f"{samp[-1]['logpost_mean']})")
+    mean = lambda k: sum(r[k] for r in samp) / len(samp)
+    print(f"NUTS path (c3): launches {nuts_launches} "
+          f"({nuts_launches['sweep3d_cycle'] / steps:.1f} K1 and "
+          f"{nuts_launches['transport3d_cycle'] / steps:.1f} K4 per step over "
+          f"{steps} steps); logpost_mean {init['logpost_mean']} -> "
+          f"{samp[-1]['logpost_mean']}; mean tree depth {mean('tree_depth'):.3f}, "
+          f"divergent share {mean('divergent'):.3f}, acceptance statistic "
+          f"{mean('accept'):.4f} (sampling segments); {rate_all:.3f} "
+          f"chain-steps/s over {steps} steps x {n3} chains after init, "
+          f"{rate_last:.3f} in the last segment; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (cli wall "
+          f"{wall:.1f} s)")
+
+    # 14. A short HMC run on config 3 through the CLI.
+    k1.launches = k4.launches = 0
+    recs, _, wall = _run_cli(cli, ["run", C3_CONFIG, *C3_HMC_ARGS])
+    hmc_launches = {"sweep3d_cycle": k1.launches,
+                    "transport3d_cycle": k4.launches}
+    if min(hmc_launches.values()) <= 0:
+        raise RuntimeError(f"HMC path: a kernel was never launched "
+                           f"({hmc_launches})")
+    c3_hmc = apply_overrides(c3, C3_HMC_ARGS)
+    init, samp, steps, rate_all, _ = _check_run(
+        recs, "HMC path", c3_hmc.sampler.n_warmup, n3)
+    if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+        raise RuntimeError(f"HMC path: logpost did not rise "
+                           f"({init['logpost_mean']} -> "
+                           f"{samp[-1]['logpost_mean']})")
+    print(f"HMC path (c3, {c3_hmc.sampler.n_leapfrog} leapfrogs): launches "
+          f"{hmc_launches}; logpost_mean {init['logpost_mean']} -> "
+          f"{samp[-1]['logpost_mean']}; acceptance {mean('accept'):.4f}; "
+          f"{rate_all:.3f} chain-steps/s over {steps} steps (cli wall "
+          f"{wall:.1f} s)")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
+    # Bounds at the shapes timed: one cycle of the batch (every field
+    # active, as in the timed launches).
+    b_k1, by_k1 = _bound(s_a.numel(), 16, _k1_ops(cfg.eikonal.n_inner))
+    b_k4, by_k4 = _bound(s_a.numel(), 24, _k4_ops(cfg.eikonal.n_inner))
+    b_k1_c3, _ = _bound(T0_3.numel(), 16, _k1_ops(ecfg3.n_inner))
+    b_k4_c3, _ = _bound(T0_3.numel(), 24, _k4_ops(ecfg3.n_inner))
+    b_k3, by_k3 = _bound(math.prod(g4.shape) * n_part * n_src4, 16,
+                         _k3_ops(ecfg4.n_inner))
+    b_k3_c1, _ = _bound(math.prod(g1.shape) * c1.sampler.n_chains * n_src1,
+                        16, _k3_ops(ecfg1.n_inner))
     print(json.dumps({"kernels": [{
         "name": "sweep3d_cycle",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep3d.cu",
-        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:372",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:372, :222, :132",
         "launches": mala_launches["sweep3d_cycle"],
         "max_abs_err": max(errs["sweep3d_cycle"]),
         "ms": ms_k1,
         "plain_ms": ms_k1_plain,
+        "bound_ms": b_k1,
+        "bound_by": by_k1,
+        "library_ms": None,
+        "c3_launches": nuts_launches["sweep3d_cycle"],
+        "c3_ms": ms_k1_c3,
+        "c3_plain_ms": ms_k1_c3_plain,
+        "c3_bound_ms": b_k1_c3,
     }, {
         "name": "transport3d_cycle",
         "route": "cuda",
@@ -713,6 +963,13 @@ def main() -> int:
         "max_abs_err": max(errs["transport3d_cycle"]),
         "ms": ms_k4,
         "plain_ms": ms_k4_plain,
+        "bound_ms": b_k4,
+        "bound_by": by_k4,
+        "library_ms": None,
+        "c3_launches": nuts_launches["transport3d_cycle"],
+        "c3_ms": ms_k4_c3,
+        "c3_plain_ms": ms_k4_c3_plain,
+        "c3_bound_ms": b_k4_c3,
     }, {
         "name": "sweep2d_cycle",
         "route": "cuda",
@@ -722,6 +979,12 @@ def main() -> int:
         "max_abs_err": max(errs["sweep2d_cycle"]),
         "ms": ms_k3,
         "plain_ms": ms_k3_plain,
+        "bound_ms": b_k3,
+        "bound_by": by_k3,
+        "library_ms": None,
+        "c1_ms": ms_k3_c1,
+        "c1_plain_ms": ms_k3_c1_plain,
+        "c1_bound_ms": b_k3_c1,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,14 @@
 """Top-level API: ``run(config, device) -> RunSummary``.
 
-Counterpart of ``mceik_tpu/api.py`` for the tomo posterior: config ->
-grid -> synthetic data -> posterior -> sampler (rwm, am, am_full, or mala
-with an optional Laplace preconditioner), sampled in segments of
-``io.log_every`` steps with one JSONL metrics record per segment (plus one
-for the Laplace setup and one for the initial states), then pooled moments
-and diagnostics. Welford moments carry across segments, so segmentation
-never changes the statistics. SMC has its own entry point,
+Counterpart of ``mceik_tpu/api.py`` for the tomo and joint posteriors with
+fixed noise: config -> grid -> synthetic data -> posterior -> sampler (rwm,
+am, am_full, pcn, mala, hmc or nuts; MALA with an optional Laplace
+preconditioner, and hmc, nuts and pcn optionally in the whitened
+coordinates of a Laplace fit), sampled in segments of ``io.log_every``
+steps with one JSONL metrics record per segment (plus one for the Laplace
+setup and one for the initial states), then pooled moments and
+diagnostics. Welford moments carry across segments, so segmentation never
+changes the statistics. SMC has its own entry point,
 ``samplers.smc.run_smc_config``, which the CLI calls.
 """
 
@@ -24,12 +26,13 @@ from mceik_tpu_torch.datasets import make_dataset
 from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
 from mceik_tpu_torch.io.metrics import MetricsLogger
+from mceik_tpu_torch.model.params import Params, box_logjac
 from mceik_tpu_torch.model.posterior import build_posterior
-from mceik_tpu_torch.samplers import am, am_full, mala, rwm
+from mceik_tpu_torch.samplers import am, am_full, hmc, mala, nuts, pcn, rwm
 from mceik_tpu_torch.samplers.base import MCMCResult, init_chain_states, run_mcmc
 from mceik_tpu_torch.utils import tree_map
 
-SAMPLERS = ("rwm", "am", "am_full", "mala")
+SAMPLERS = ("rwm", "am", "am_full", "pcn", "mala", "hmc", "nuts")
 
 
 @dataclasses.dataclass
@@ -61,9 +64,8 @@ def _check_supported(config: RunConfig) -> None:
         raise ValueError("sampler 'smc' has its own entry point: "
                          "samplers.smc.run_smc_config (what the CLI runs)")
     if scfg.algorithm not in SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {scfg.algorithm!r}: the port runs {', '.join(SAMPLERS)} "
-            "and smc (hmc, nuts and pcn are slice 4)")
+        raise ValueError(f"unknown sampler {scfg.algorithm!r}: the port runs "
+                         f"{', '.join(SAMPLERS)} and smc")
     check_run_options(config)
 
 
@@ -98,27 +100,82 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def _step_size_of(hyper) -> float:
+    """The logged step: exp(log step) for rwm, am, am_full and mala, the
+    dual-averaged leapfrog step for hmc and nuts, and rho itself (not the
+    reference's odds rho / (1 - rho)) for pcn."""
+    if isinstance(hyper, pcn.PCNHyper):
+        return float(torch.sigmoid(hyper.log_rho))
+    if isinstance(hyper, hmc.HMCHyper):
+        return float(torch.exp(hyper.da.log_eps))
     return float(torch.exp(hyper.log_step))
 
 
+def _uses_gradients(scfg) -> bool:
+    """hmc, nuts and mala take gradients; whitened pcn's Laplace setup
+    does (its steps do not)."""
+    return (scfg.algorithm in ("hmc", "nuts", "mala")
+            or (scfg.algorithm == "pcn" and scfg.precondition == "whitened"))
+
+
+def _laplace(posterior, scfg, logger):
+    """The Laplace setup (MAP + Gauss-Newton covariance) with its JSONL
+    record; returns ``(p_map, cov)``."""
+    from mceik_tpu_torch.model.laplace import laplace_preconditioner
+    t0 = time.perf_counter()
+    p_map, cov, trace = laplace_preconditioner(posterior,
+                                               n_map_steps=scfg.n_map_steps)
+    if logger is not None:
+        logger.log({"phase": "laplace",
+                    "seconds": round(time.perf_counter() - t0, 3),
+                    "n_trace": len(trace),
+                    "logpost_first": round(trace[0], 3),
+                    "logpost_last": round(trace[-1], 3)})
+    return p_map, cov
+
+
+def _gradient_kernel(scfg, logpost_fn):
+    if scfg.algorithm == "hmc":
+        return hmc.make_kernel(logpost_fn, scfg.n_leapfrog)
+    return nuts.make_kernel(logpost_fn, scfg.max_tree_depth)
+
+
 def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
-    """Returns ``(kernel, adapter, hyper, finalize_fn, states)``, with the
-    chains initialised (RWM has no finalize). MALA carries cached gradients; with
+    """Returns ``(kernel, adapter, hyper, finalize_fn, states, params_of)``,
+    with the chains initialised (RWM has no finalize). ``params_of`` maps
+    whitened chain states to model params, and is None when the states are
+    model params. MALA carries cached gradients; with
     ``precondition="laplace"`` the MAP and Gauss-Newton covariance are
     computed once here and pinned, and the chains start at the MAP plus
-    0.3x Laplace jitter."""
+    0.3x Laplace jitter. hmc, nuts and pcn with ``precondition="whitened"``
+    run in the Laplace fit's whitened coordinates (``model/whitened.py``)."""
     scales = posterior.prior_scales
     lp = posterior.logpost
-    if scfg.algorithm == "mala":
+    algo = scfg.algorithm
+    if algo in ("hmc", "nuts", "pcn") and scfg.precondition == "whitened":
+        from mceik_tpu_torch.model.whitened import whitened_view
+        wv = whitened_view(posterior, *_laplace(posterior, scfg, logger))
+        if algo == "pcn":
+            # Generalized pCN: unit reference in the whitened coordinates,
+            # acceptance on the non-Gaussian residual alone.
+            states = init_chain_states(wv.resid_u, wv.init_u, gen,
+                                       scfg.n_chains)
+            return (pcn.make_kernel(wv.resid_u),
+                    pcn.make_adapter(scfg.target_accept),
+                    pcn.init_hyper(wv.scales_u, None, scfg.step_size),
+                    pcn.finalize, states, wv.params_of)
+        states = init_chain_states(wv.logpost_u, wv.init_u, gen,
+                                   scfg.n_chains)
+        target = max(scfg.target_accept, 0.7 if algo == "hmc" else 0.8)
+        return (_gradient_kernel(scfg, wv.logpost_u), hmc.make_adapter(target),
+                hmc.init_hyper(wv.scales_u, scfg.step_size, wv.zero_u),
+                hmc.finalize, states, wv.params_of)
+    if algo == "mala":
         target = max(scfg.target_accept, 0.574)
         hyper = mala.init_hyper(scales, scfg.step_size)
         init_fn = posterior.init_params
         adapt_cov = True
         if scfg.precondition == "laplace":
-            from mceik_tpu_torch.model.laplace import laplace_preconditioner
-            t0 = time.perf_counter()
-            p_map, cov, trace = laplace_preconditioner(
-                posterior, n_map_steps=scfg.n_map_steps)
+            p_map, cov = _laplace(posterior, scfg, logger)
             hyper = mala.prime_covariance(hyper, cov)
             adapt_cov = False
             x_map = mala._ravel(p_map, batch_dims=1)            # (1, d)
@@ -136,27 +193,47 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
                                            device=x_map.device)
                 return unravel(x_map + 0.3 * (eps @ L_init.T))
 
-            if logger is not None:
-                logger.log({"phase": "laplace",
-                            "seconds": round(time.perf_counter() - t0, 3),
-                            "n_trace": len(trace),
-                            "logpost_first": round(trace[0], 3),
-                            "logpost_last": round(trace[-1], 3)})
         states = mala.init_states(lp, init_fn, gen, scfg.n_chains)
         return (mala.make_kernel(lp), mala.make_adapter(target,
                                                         adapt_cov=adapt_cov),
-                hyper, mala.finalize, states)
+                hyper, mala.finalize, states, None)
+    if algo == "pcn":
+        # Gaussian leaves by pCN against the prior; hypocentres by a random
+        # walk whose logistic prior enters the acceptance.
+        nongauss = None
+        rw_scales = None
+        if scales.hypo_raw is not None:
+            nongauss = lambda p: box_logjac(p.hypo_raw)
+            rw_scales = Params(hypo_raw=torch.ones_like(scales.hypo_raw))
+        gauss_scales = dataclasses.replace(scales, hypo_raw=None)
+
+        def state_lp(p):
+            ll = posterior.log_lik(p)
+            return ll if nongauss is None else ll + nongauss(p)
+
+        states = init_chain_states(state_lp, posterior.init_params, gen,
+                                   scfg.n_chains)
+        return (pcn.make_kernel(posterior.log_lik, nongauss),
+                pcn.make_adapter(scfg.target_accept),
+                pcn.init_hyper(gauss_scales, rw_scales, scfg.step_size),
+                pcn.finalize, states, None)
     states = init_chain_states(lp, posterior.init_params, gen, scfg.n_chains)
-    if scfg.algorithm == "rwm":
+    if algo in ("hmc", "nuts"):
+        target = max(scfg.target_accept, 0.7 if algo == "hmc" else 0.8)
+        return (_gradient_kernel(scfg, lp), hmc.make_adapter(target),
+                hmc.init_hyper(scales, scfg.step_size, scales), hmc.finalize,
+                states, None)
+    if algo == "rwm":
         return (rwm.make_kernel(lp), rwm.make_adapter(scfg.target_accept),
-                rwm.init_hyper(scales, scfg.step_size), None, states)
-    if scfg.algorithm == "am_full":
+                rwm.init_hyper(scales, scfg.step_size), None, states, None)
+    if algo == "am_full":
         return (am_full.make_kernel(lp), am_full.make_adapter(scfg.target_accept),
                 am_full.init_hyper(scales, scfg.step_size),
-                am_full.finalize, states)
+                am_full.finalize, states, None)
     example = tree_map(lambda x: x[0], states.params)
     return (am.make_kernel(lp), am.make_adapter(scfg.target_accept),
-            am.init_hyper(scales, scfg.step_size, example), am.finalize, states)
+            am.init_hyper(scales, scfg.step_size, example), am.finalize,
+            states, None)
 
 
 def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
@@ -166,20 +243,19 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     grid = config.grid.build()
     data, truth = make_dataset(grid, config.data, config.model, device=device)
     scfg = config.sampler
-    # Of the samplers the port runs, only MALA takes gradients (hmc, nuts
-    # and whitened pcn join it in slice 4).
     posterior = build_posterior(config.model, data, grid, config.eikonal,
-                                differentiable=scfg.algorithm == "mala")
+                                differentiable=_uses_gradients(scfg))
 
     logger = MetricsLogger() if verbose else None
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
-    kernel, adapter, hyper, finalize_fn, states = _dispatch_sampler(
-        scfg, posterior, gen, logger)
+    kernel, adapter, hyper, finalize_fn, states, params_of = \
+        _dispatch_sampler(scfg, posterior, gen, logger)
+    collect_fn = params_of if params_of is not None else (lambda p: p)
 
     def track_fn(params):
-        return {"params": params, "slowness": posterior.slowness_of(params)}
-
-    collect_fn = lambda params: params
+        # Whitened chains carry u; moments always see model params.
+        p = collect_fn(params)
+        return {"params": p, "slowness": posterior.slowness_of(p)}
 
     seg = config.io.log_every if config.io.log_every > 0 else scfg.n_samples
     seg = max(1, min(seg, scfg.n_samples))
@@ -212,9 +288,12 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
         if logger is not None:
             lp = _to_numpy(r.logpost_trace)
             last = lp[-1] if len(lp) else _to_numpy(states.logpost)
+            extra = {k: round(float(r.info_trace[k].mean()), 4)
+                     for k in ("divergent", "tree_depth") if k in r.info_trace}
             logger.log({
                 "phase": "sample", "step": step_done,
                 "accept": round(float(np.mean(_to_numpy(r.accept_trace))), 4),
+                **extra,
                 "logpost_mean": round(float(last.mean()), 3),
                 "logpost_min": round(float(last.min()), 3),
                 "logpost_max": round(float(last.max()), 3),
@@ -241,9 +320,10 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     ess_lp = ess(logpost_trace) if logpost_trace.size else float("nan")
 
     probe = None
-    if samples is not None and samples.u is not None:
-        probe = samples.u.reshape(logpost_trace.shape[0],
-                                  logpost_trace.shape[1], -1)
+    if samples is not None:
+        field = samples.u if samples.u is not None else samples.hypo_raw
+        probe = field.reshape(logpost_trace.shape[0],
+                              logpost_trace.shape[1], -1)
     rhat_max = (float(np.nanmax(split_rhat(probe))) if probe is not None
                 else float("nan"))
     ess_min = ess_med = float("nan")

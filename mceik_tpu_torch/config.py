@@ -43,7 +43,7 @@ class ModelCfg:
 
     mode: "tomo" (slowness only, known sources), "joint" (slowness +
     hypocenters + origin times) or "locate" (hypocenters over a fixed
-    slowness). The port runs "tomo" with fixed noise.
+    slowness). The port runs "tomo" and "joint" with fixed noise.
     """
 
     mode: str = "tomo"

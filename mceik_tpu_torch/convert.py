@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
 Each function takes objects of the JAX package (``Params``, ``TomoData``,
-``RWMHyper``, ``AMHyper``, ``AMFullHyper``, ``MALAState``, ``SMCState``)
-whose leaves are array-likes, reads them as numpy arrays, and
+``EventData``, ``RWMHyper``, ``AMHyper``, ``AMFullHyper``, ``MALAState``,
+``SMCState``, ``HMCHyper``, ``PCNHyper``) whose leaves are array-likes,
+reads them as numpy arrays, and
 returns the port's dataclasses on ``device``. Attribute access only: this
 module imports neither ``jax`` nor ``mceik_tpu``. The parity tests use it
 so that both packages compute on the same state.
@@ -14,12 +15,13 @@ import numpy as np
 import torch
 
 from mceik_tpu_torch.diag.moments import Welford
-from mceik_tpu_torch.model.data import TomoData
+from mceik_tpu_torch.model.data import EventData, TomoData
 from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.samplers.am import AMHyper
 from mceik_tpu_torch.samplers.am_full import AMFullHyper
-from mceik_tpu_torch.samplers.hmc import DualAveraging
+from mceik_tpu_torch.samplers.hmc import DualAveraging, HMCHyper
 from mceik_tpu_torch.samplers.mala import MALAState
+from mceik_tpu_torch.samplers.pcn import PCNHyper
 from mceik_tpu_torch.samplers.rwm import RWMHyper
 from mceik_tpu_torch.samplers.smc import SMCState
 
@@ -37,9 +39,21 @@ def params_from_jax(p, device="cpu") -> Params:
                   noise_z=_t(p.noise_z, device))
 
 
+def _tree(x, device):
+    """A JAX ``Params``, or a bare array (a toy target's state), or None."""
+    if x is None:
+        return None
+    return params_from_jax(x, device) if hasattr(x, "u") else _t(x, device)
+
+
 def tomo_data_from_jax(d, device="cpu") -> TomoData:
     return TomoData(src_xyz=_t(d.src_xyz, device), rec_xyz=_t(d.rec_xyz, device),
                     t_obs=_t(d.t_obs, device), mask=_t(d.mask, device))
+
+
+def event_data_from_jax(d, device="cpu") -> EventData:
+    return EventData(sta_xyz=_t(d.sta_xyz, device), t_obs=_t(d.t_obs, device),
+                     mask=_t(d.mask, device))
 
 
 def _da_from_jax(da, device) -> DualAveraging:
@@ -82,12 +96,29 @@ def rwm_hyper_from_jax(h, device="cpu") -> RWMHyper:
                     scales=params_from_jax(h.scales, device))
 
 
+def hmc_hyper_from_jax(h, device="cpu") -> HMCHyper:
+    """HMC's (and NUTS's) hyper: tuner, inverse mass, pooled Welford and
+    prior scales."""
+    w = h.welford
+    return HMCHyper(da=_da_from_jax(h.da, device),
+                    inv_mass=_tree(h.inv_mass, device),
+                    welford=Welford(count=_t(w.count, device),
+                                    mean=_tree(w.mean, device),
+                                    m2=_tree(w.m2, device)),
+                    scales=_tree(h.scales, device))
+
+
+def pcn_hyper_from_jax(h, device="cpu") -> PCNHyper:
+    return PCNHyper(log_rho=_t(h.log_rho, device),
+                    gauss_scales=_tree(h.gauss_scales, device),
+                    rw_scales=_tree(h.rw_scales, device),
+                    da=_da_from_jax(h.da, device))
+
+
 def smc_state_from_jax(s, device="cpu") -> SMCState:
     """A particle population: params, log prior, log likelihood and the
     shared mutation log-step. Non-``Params`` particles (a bare array, as in
     a toy target) come across as one tensor."""
-    params = (params_from_jax(s.params, device) if hasattr(s.params, "u")
-              else _t(s.params, device))
-    return SMCState(params=params, log_prior=_t(s.log_prior, device),
+    return SMCState(params=_tree(s.params, device), log_prior=_t(s.log_prior, device),
                     log_lik=_t(s.log_lik, device),
                     log_step=_t(s.log_step, device))

@@ -2,7 +2,14 @@
 //
 // Replaces the Pallas TPU kernel `_sweep_axes012_fused_kernel` /
 // `sweep_axes012_fused` (mceik_tpu/eikonal/pallas_sweep.py:343, :372), the
-// body of `sweep_solve_pallas_packed` on cube grids. It computes the plain
+// body of `sweep_solve_pallas_packed` on cube grids; and on non-cube grids
+// with n_x == n_y (config 3's 48x48x32) the pair that packed route takes
+// instead, `_sweep_axes01_fused_kernel` / `sweep_axes01_fused` (:196, :222,
+// call :230) for axes 0 and 1 and `_sweep_axis0_kernel` / `sweep_axis0`
+// (:82, :132, call :139) for axis 2. The TPU splits a cycle across those
+// two calls for its VMEM layouts; here one launch marches all three axes of
+// any 3-D shape whose three largest planes fit in shared memory (27.6 KB at
+// 48x48x32). It computes the plain
 // reference `sweep_cycle_plain` (mceik_tpu_torch/eikonal/solve.py, itself
 // the port of mceik_tpu/eikonal/solve.py:_sweep_cycle) operation for
 // operation: for axis 0, 1, 2 in turn, march the planes forward and then

@@ -2,10 +2,13 @@
 
     python -m mceik_tpu_torch.diag.profile configs/c2_mala.json [overrides] [--warm N] [--steps N]
 
-For an MCMC config (rwm, am, am_full, mala): builds the config's posterior
-and sampler as ``api.run`` does (the Laplace setup included), runs
-``--warm`` warmup steps, times ``--steps`` steps with the host clock around
-a synchronised loop, then traces ``--steps`` more with ``torch.profiler``.
+For an MCMC config (rwm, am, am_full, pcn, mala, hmc, nuts): builds the
+config's posterior and sampler as ``api.run`` does (the Laplace setup
+included), runs ``--warm`` warmup steps, times ``--steps`` steps with the
+host clock around a synchronised loop (with the kernels' launches per step
+and the mean of every per-chain info entry, e.g. NUTS's tree depth), then
+traces ``--steps`` more with ``torch.profiler``. Config 3's NUTS:
+``configs/c3_joint_events.json --warm 5 --steps 3``.
 
 For an SMC config (``configs/c4_smc.json``) a step is one stage of the
 ladder (``samplers.smc.stage``: the next beta, reweight and resample, the
@@ -83,8 +86,9 @@ def _traced(fn, path):
 
 def _profile_mcmc(cfg, args, path):
     from mceik_tpu_torch.api import (_check_supported, _dispatch_sampler,
-                                     prepare_device)
+                                     _uses_gradients, prepare_device)
     from mceik_tpu_torch.datasets import make_dataset
+    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
     from mceik_tpu_torch.io.metrics import MetricsLogger
     from mceik_tpu_torch.model.posterior import build_posterior
     from mceik_tpu_torch.samplers.base import run_mcmc
@@ -95,26 +99,35 @@ def _profile_mcmc(cfg, args, path):
     grid = cfg.grid.build()
     data, _ = make_dataset(grid, cfg.data, cfg.model, device=dev)
     post = build_posterior(cfg.model, data, grid, cfg.eikonal,
-                           differentiable=scfg.algorithm == "mala")
+                           differentiable=_uses_gradients(scfg))
     gen = torch.Generator(device=dev).manual_seed(scfg.seed)
-    kernel, adapter, hyper, finalize_fn, states = _dispatch_sampler(
+    kernel, adapter, hyper, finalize_fn, states, _ = _dispatch_sampler(
         scfg, post, gen, MetricsLogger())
     r = run_mcmc(kernel, adapter, states, hyper, gen, n_warmup=args.warm,
                  n_steps=0, finalize_fn=finalize_fn)
     states, hyper = r.states, r.hyper
 
+    kernels = {"sweep3d_cycle": cuda_sweep.SWEEP3D,
+               "transport3d_cycle": cuda_transport.TRANSPORT3D,
+               "sweep2d_cycle": cuda_sweep.SWEEP2D}
+    counts0 = {k: v.launches for k, v in kernels.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = run_mcmc(kernel, None, states, hyper, gen, n_warmup=0,
                  n_steps=args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    per_step = {k: (v.launches - counts0[k]) / args.steps
+                for k, v in kernels.items() if v.launches > counts0[k]}
+    info = {k: float(v.mean()) for k, v in r.info_trace.items()}
     states = r.states
     summary = _traced(lambda: run_mcmc(kernel, None, states, hyper, gen,
                                        n_warmup=0, n_steps=args.steps), path)
-    return {"n_chains": scfg.n_chains, "steps": args.steps,
+    return {"algorithm": scfg.algorithm, "n_chains": scfg.n_chains,
+            "steps": args.steps,
             "chain_steps_per_s": args.steps * scfg.n_chains / wall,
-            "ms_per_step": wall * 1e3 / args.steps, **summary}
+            "ms_per_step": wall * 1e3 / args.steps,
+            "launches_per_step": per_step, "info_mean": info, **summary}
 
 
 def _profile_smc(cfg, args, path):

@@ -35,7 +35,7 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
     if config.method != "sweep":
         raise NotImplementedError(
             f"eikonal method {config.method!r}: the port runs 'sweep' only "
-            "(the Jacobi solve is slice 4)")
+            "(the Jacobi solve is a later slice)")
     if config.use_pallas == "interpret":
         raise ValueError("use_pallas='interpret' is a Pallas mode; the port "
                          "takes 'auto', 'on' or 'off'")

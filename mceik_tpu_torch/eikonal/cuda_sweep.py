@@ -4,9 +4,12 @@ K3, ``eikonal/cuda_sweep2d.py``, for 2-D fields).
 
 Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch runs one
 full sweep cycle (axes 0, 1, 2, each forward then backward) on every field
-of a ``(B, nx, ny, nz)`` fp32 batch whose done flag is clear; it replaces
-the Pallas kernel ``sweep_axes012_fused`` (pallas_sweep.py:372). The design
-note is in the CUDA source.
+of a ``(B, nx, ny, nz)`` fp32 batch whose done flag is clear. It replaces
+the Pallas kernel ``sweep_axes012_fused`` (pallas_sweep.py:372) on cube
+grids, and on config 3's non-cube route (n_x == n_y, 48x48x32) the pair
+``sweep_axes01_fused`` (pallas_sweep.py:222, call :230) + ``sweep_axis0``
+on axis 2 (:132, call :139) that ``sweep_cycle_pallas_packed`` takes
+there. The design note is in the CUDA source.
 
 The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` and loaded with ``ctypes`` (``eikonal/cuda_build.py``).

@@ -4,7 +4,8 @@ Counterpart of ``mceik_tpu/eikonal/pallas_transport.py``. One launch runs
 one full adjoint transport cycle (axes 0, 1, 2, each forward then backward)
 on every field of a ``(B, nx, ny, nz)`` fp32 batch whose done flag is clear;
 it replaces the Pallas kernel ``transport_axis0`` (pallas_transport.py:132)
-as ``transport_solve_pallas_packed`` drives it. The design note is in the
+as ``transport_solve_pallas_packed`` drives it, on cube grids and on
+config 3's 48x48x32 alike (46 KB of shared memory there). The design note is in the
 CUDA source. The blocked 128^3 route of that module (halo planes and
 pinned rows, K5) is not ported.
 
@@ -87,6 +88,7 @@ def transport_cycle(lam: torch.Tensor, g: torch.Tensor,
         if lam.ndim != 4:
             raise NotImplementedError(
                 "2-D transport on CUDA needs a 2-D transport kernel, which "
-                "is slice 4 of the port")
+                "is a later slice of the port (the reference's own packed "
+                "transport route raises on 2-D batches)")
         return TRANSPORT3D(lam, g, wsigned, n_inner, done)
     raise ValueError(f"no transport cycle for device {lam.device}")

@@ -4,8 +4,8 @@ Counterpart of ``mceik_tpu/forward/predict.py``. A leading chain axis on
 the slowness is carried through: every chain's tables go into ONE batched
 solve of ``chains x table points`` fields. With ``differentiable=True`` the
 solve is the implicit-adjoint one (``eikonal/adjoint.py``), so gradients
-reach the slowness; interpolation gradients flow through ``grid_sample``'s
-own backward.
+reach the slowness; interpolation gradients (to the tables and to event
+positions) flow through ``grid.sample_linear``'s autograd.
 """
 
 from __future__ import annotations
@@ -79,3 +79,30 @@ def predict_tomo(slowness: torch.Tensor, src_xyz: torch.Tensor,
         return interp_tables(tables, rec_xyz, grid)
     tables = traveltime_tables(slowness, rec_xyz, grid, config, differentiable)
     return interp_tables(tables, src_xyz, grid).transpose(-1, -2)
+
+
+def predict_events(station_tables: torch.Tensor, event_xyz: torch.Tensor,
+                   t0: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Predicted arrivals of events with unknown hypocentres.
+
+    Tables are solved from the stations (reciprocity), so an arrival is
+    ``T_station(event) + t0`` and its hypocentre gradient flows through the
+    interpolation alone; every chain interpolates its own tables at its own
+    events.
+
+    Args:
+      station_tables: ``lead + (n_sta,) + grid.shape``.
+      event_xyz: ``lead + (n_ev, D)`` hypocentres. t0: ``lead + (n_ev,)``.
+
+    Returns ``lead + (n_ev, n_sta)``.
+    """
+    D = grid.ndim
+    lead = tuple(event_xyz.shape[:-2])
+    n_ev = event_xyz.shape[-2]
+    tabs = station_tables.reshape((-1,) + tuple(station_tables.shape[-D - 1:]))
+    L, n_sta = tabs.shape[0], tabs.shape[1]
+    idx = grid.to_index_coords(event_xyz).reshape(L, 1, n_ev, D)
+    tt = sample_linear(tabs.reshape((L * n_sta,) + grid.shape),
+                       idx.expand(L, n_sta, n_ev, D).reshape(L * n_sta, n_ev, D))
+    tt = tt.reshape(L, n_sta, n_ev).transpose(1, 2)
+    return tt.reshape(lead + (n_ev, n_sta)) + t0.unsqueeze(-1)

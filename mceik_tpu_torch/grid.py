@@ -7,11 +7,12 @@ coordinates in numpy and device coordinates in torch.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,28 +73,45 @@ class Grid:
 
 def sample_linear(fields: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Multilinear interpolation of a batch of fields at fractional index
-    coords, with coordinates clamped to the grid (the counterpart of
-    ``map_coordinates(order=1, mode="nearest")``).
+    coords, with indices clamped to the grid: what
+    ``map_coordinates(order=1, mode="nearest")`` computes, in its order.
 
     Args:
       fields: ``(N,) + grid_shape`` (2-D or 3-D grids).
       idx: ``(N, P, D)`` fractional index coords, in grid axis order.
 
-    Returns ``(N, P)``.
+    Returns ``(N, P)``, differentiable in both the fields and the coords.
 
-    ``grid_sample`` with ``align_corners=True`` maps -1/+1 to the first/last
-    node and ``padding_mode="border"`` clamps, which is the "nearest" edge
-    mode; it wants the coordinates in reversed axis order (x indexes the
-    last dim).
+    Per axis the corners are ``floor(x)`` and ``floor(x) + 1``, clamped to
+    the axis, with weights ``1 - f`` and ``f`` for ``f = x - floor(x)``; the
+    ``2^D`` corner terms (product of weights times the gathered value) are
+    summed in ``itertools.product`` order. Working in index coordinates
+    keeps the slopes between nodes exact, which hypocentre gradients are
+    (``grid_sample``'s normalised coordinates cost ~2e-5 on values).
     """
     N, P, D = idx.shape
-    shape = fields.shape[1:]
+    shape = tuple(fields.shape[1:])
     if len(shape) != D or D not in (2, 3):
         raise ValueError(f"fields {tuple(fields.shape)} vs coords {tuple(idx.shape)}")
-    denom = torch.tensor([max(n - 1, 1) for n in shape], dtype=idx.dtype,
-                         device=idx.device)
-    norm = (2.0 * idx / denom - 1.0).flip(-1)
-    grid = norm.reshape((N,) + (1,) * (D - 1) + (P, D))
-    out = F.grid_sample(fields.unsqueeze(1), grid, mode="bilinear",
-                        padding_mode="border", align_corners=True)
-    return out.reshape(N, P)
+    flat = fields.reshape(N, -1)
+    lo = torch.floor(idx)
+    w_hi = idx - lo
+    w_lo = 1.0 - w_hi
+    lo_i = lo.to(torch.long)
+    strides = [math.prod(shape[d + 1:]) for d in range(D)]
+    per_axis = []
+    for d in range(D):
+        i0 = lo_i[..., d]
+        per_axis.append(
+            [(i0.clamp(0, shape[d] - 1) * strides[d], w_lo[..., d]),
+             ((i0 + 1).clamp(0, shape[d] - 1) * strides[d], w_hi[..., d])])
+    out = None
+    for corner in itertools.product(*per_axis):
+        lin = corner[0][0]
+        w = corner[0][1]
+        for off, wd in corner[1:]:
+            lin = lin + off
+            w = w * wd
+        term = w * flat.gather(1, lin)
+        out = term if out is None else out + term
+    return out

@@ -1,12 +1,13 @@
 """Laplace / Gauss-Newton posterior approximation: MAP estimate and the
 Gauss-Newton covariance, the preconditioner of MALA.
 
-Counterpart of ``mceik_tpu/model/laplace.py``. The tomography posterior
-over the inversion basis is near-Gaussian with covariance
+Counterpart of ``mceik_tpu/model/laplace.py``. The tomography and joint
+posteriors over the unconstrained basis are near-Gaussian with covariance
 
     C = (P + J^T W J)^{-1},   J = d t_pred / d x  (n_obs x d),
 
-P the prior precision and W the noise precision. The fit works on ONE
+P the prior precision and W the noise precision (for a t0-marginalized
+joint likelihood, J's rows demeaned per event). The fit works on ONE
 chain (params with a leading axis of 1), so these phases solve ``n_src``
 fields at a time. The reference pulls J back one row at a time; here all
 ``n_obs`` rows are one batch (``PosteriorModel.jacobian``): one forward
@@ -84,6 +85,15 @@ def gauss_newton_covariance(post, params) -> torch.Tensor:
     J = torch.where(active[None, :], J, 0.0)
     sig = torch.tensor(post.cfg.sigma, dtype=torch.float32, device=J.device)
     w = (1.0 / sig ** 2).expand(n_obs)
+    if post.cfg.mode != "tomo" and post.cfg.marginalize_t0:
+        # The exact GN curvature of the t0-marginalized likelihood: per
+        # event, the precision-weighted mean of its rows is taken out.
+        n_ev = post.prior_scales.hypo_raw.shape[0]
+        Je = J.reshape(n_ev, n_obs // n_ev, -1)
+        we = w.reshape(n_ev, -1)
+        sw = torch.clamp(we.sum(1, keepdim=True), min=1e-20)
+        wJ = torch.einsum("es,esd->ed", we, Je) / sw
+        J = (Je - wJ[:, None, :]).reshape(n_obs, -1)
     prior_prec = torch.where(active, 1.0 / torch.clamp(scales, min=1e-20) ** 2,
                              1.0)
     H = torch.diag(prior_prec) + (J.T * w[None, :]) @ J

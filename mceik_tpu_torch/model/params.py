@@ -2,7 +2,10 @@
 
 Counterpart of ``mceik_tpu/model/params.py``. Parameters live in an
 unconstrained basis; the slowness is ``s = s_bg * exp(upsample(u))`` with
-``u`` on the coarse inversion grid. Leaves may carry a leading chain axis.
+``u`` on the coarse inversion grid, and hypocentres are ``hypo_raw`` mapped
+into the grid's box by a scaled sigmoid (a uniform-in-box prior becomes
+the logistic Jacobian term :func:`box_logjac`). Leaves may carry a leading
+chain axis.
 """
 
 from __future__ import annotations
@@ -47,3 +50,34 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     if not batched:
         up = up[0]
     return background * torch.exp(up)
+
+
+def _box(grid: Grid, margin: float, like: torch.Tensor):
+    lo = torch.tensor(grid.origin, dtype=like.dtype, device=like.device) + margin
+    hi = lo + torch.tensor(grid.extent, dtype=like.dtype,
+                           device=like.device) - 2 * margin
+    return lo, hi
+
+
+def box_from_raw(hypo_raw: torch.Tensor, grid: Grid,
+                 margin: float = 0.0) -> torch.Tensor:
+    """Sigmoid-map unconstrained coords ``(..., D)`` into the grid's
+    physical box."""
+    lo, hi = _box(grid, margin, hypo_raw)
+    return lo + (hi - lo) * torch.sigmoid(hypo_raw)
+
+
+def box_logjac(hypo_raw: torch.Tensor) -> torch.Tensor:
+    """log|d box / d raw| per chain, ``(C, ...) -> (C,)`` (the
+    uniform-in-box prior in raw coords), dropping the constant log(hi - lo)
+    terms."""
+    t = F.logsigmoid(hypo_raw) + F.logsigmoid(-hypo_raw)
+    return t.flatten(1).sum(1)
+
+
+def raw_from_box(xyz: torch.Tensor, grid: Grid,
+                 margin: float = 0.0) -> torch.Tensor:
+    """Inverse of :func:`box_from_raw` (for starting chains at points)."""
+    lo, hi = _box(grid, margin, xyz)
+    p = torch.clamp((xyz - lo) / (hi - lo), 1e-5, 1 - 1e-5)
+    return torch.log(p) - torch.log1p(-p)

@@ -1,12 +1,17 @@
 """Posterior builder: prior + Gaussian traveltime likelihood.
 
-Counterpart of ``mceik_tpu/model/posterior.py`` for tomo mode with fixed
-noise. Every function takes parameters with a leading chain axis
-(``u``: ``(C,) + inv_shape``) and returns one value per chain; one
-``logpost`` call makes one batched eikonal solve of ``C x n_src`` fields.
-Built with ``differentiable=True`` the solve is the implicit-adjoint one,
-and :func:`value_and_grad` gives every chain's gradient from one backward
-pass: one batched transport solve of the same ``C x n_src`` fields.
+Counterpart of ``mceik_tpu/model/posterior.py`` with fixed noise, in two
+modes: ``tomo`` (slowness only, known sources; configs 1, 2 and 4) and
+``joint`` (slowness, hypocentres and origin times; config 3), the latter
+with sampled ``t0`` or with ``t0`` marginalized exactly. Every function
+takes parameters with a leading chain axis (``u``: ``(C,) + inv_shape``,
+``hypo_raw``: ``(C, n_ev, D)``, ``t0``: ``(C, n_ev)``) and returns one value
+per chain; one ``logpost`` call makes one batched eikonal solve of
+``C x n_src`` (tomo) or ``C x n_sta`` (joint, tables solved from the
+stations) fields. Built with ``differentiable=True`` the solve is the
+implicit-adjoint one, and :func:`value_and_grad` gives every chain's
+gradient from one backward pass: one batched transport solve of the same
+fields. Hypocentre gradients come from the table interpolation alone.
 """
 
 from __future__ import annotations
@@ -20,10 +25,12 @@ from mceik_tpu_torch.config import EikonalCfg, ModelCfg
 from mceik_tpu_torch.eikonal.adjoint import solve_eikonal_diff_batched
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import EikonalConfig
-from mceik_tpu_torch.forward.predict import predict_tomo
+from mceik_tpu_torch.forward.predict import (predict_events, predict_tomo,
+                                             traveltime_tables)
 from mceik_tpu_torch.grid import Grid, sample_linear
-from mceik_tpu_torch.model.data import TomoData
-from mceik_tpu_torch.model.params import Params, slowness_from_u
+from mceik_tpu_torch.model.data import EventData, TomoData
+from mceik_tpu_torch.model.params import (Params, box_from_raw, box_logjac,
+                                          slowness_from_u)
 from mceik_tpu_torch.utils import tree_leaves, tree_map
 
 
@@ -42,7 +49,7 @@ class PosteriorModel:
     logpost: Callable[[Params], torch.Tensor]          # -> (C,)
     init_params: Callable[..., Params]                  # (gen, n_chains, jitter)
     slowness_of: Callable[[Params], torch.Tensor]       # -> (C,) + grid
-    predict: Callable[[Params], torch.Tensor]           # -> (C, n_src, n_rec)
+    predict: Callable[[Params], torch.Tensor]           # -> (C, n_src, n_rec) or (C, n_ev, n_sta)
     grid: Grid
     cfg: ModelCfg
     n_dim: int                    # sampled scalars per chain
@@ -55,32 +62,52 @@ class PosteriorModel:
     jacobian: Optional[Callable[[Params], Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
+def _per_chain_sum(x: torch.Tensor) -> torch.Tensor:
+    return x.flatten(1).sum(1)
+
+
 def _gaussian_loglik(r, sigma, mask):
-    """Per-chain Gaussian log-likelihood of residuals ``(C, n_src, n_rec)``."""
+    """Per-chain Gaussian log-likelihood of residuals ``(C, n_a, n_b)``."""
     if mask is None:
         mask = torch.ones_like(r)
     z = r / sigma
-    return (-0.5 * (mask * z * z).flatten(1).sum(1)
-            - (mask * torch.log(sigma)).flatten(1).sum(1))
+    return (-0.5 * _per_chain_sum(mask * z * z)
+            - _per_chain_sum(mask * torch.log(sigma)))
 
 
-def build_posterior(cfg: ModelCfg, data: TomoData, grid: Grid,
+def _marginalized_t0_loglik(r, sigma, mask):
+    """Exact origin-time marginalization under a flat t0 prior, per chain,
+    for residuals ``(C, n_ev, n_sta)``: precision-weighted demeaning per
+    event plus the ``-0.5 log(sum_j w_j)`` Gaussian-integral term, with
+    ``w_j = mask_j / sigma_j^2``."""
+    if mask is None:
+        mask = torch.ones_like(r)
+    w = mask / (sigma * sigma)
+    sw = torch.clamp(w.sum(-1, keepdim=True), min=1e-20)
+    t0_hat = (w * r).sum(-1, keepdim=True) / sw
+    quad = _per_chain_sum(w * (r - t0_hat) ** 2)
+    return (-0.5 * quad - _per_chain_sum(mask * torch.log(sigma))
+            - 0.5 * _per_chain_sum(torch.log(sw[..., 0])))
+
+
+def build_posterior(cfg: ModelCfg, data, grid: Grid,
                     eik_cfg: EikonalCfg = EikonalCfg(),
                     differentiable: bool = False) -> PosteriorModel:
-    """Construct the tomo posterior over ``data`` (whose tensors set the
-    device). ``differentiable=True`` routes the solves through the implicit
-    adjoint, for the gradient samplers and the Laplace fit."""
-    if cfg.mode != "tomo":
+    """Construct the tomo or joint posterior over ``data`` (whose tensors
+    set the device). ``differentiable=True`` routes the solves through the
+    implicit adjoint, for the gradient samplers and the Laplace fit."""
+    if cfg.mode not in ("tomo", "joint"):
         raise NotImplementedError(
-            f"model mode {cfg.mode!r}: joint mode is slice 4 and locate mode "
-            "slice 5 of the port")
+            f"model mode {cfg.mode!r}: locate mode is slice 5 of the port")
     noise_model = cfg.resolved_noise_model()
     if noise_model != "fixed":
         raise NotImplementedError(
             f"noise_model {noise_model!r}: hierarchical and spike-slab noise "
-            "are slice 4 of the port")
-    if not isinstance(data, TomoData):
-        raise TypeError(f"tomo mode needs TomoData, got {type(data).__name__}")
+            "are slice 5 of the port")
+    want = TomoData if cfg.mode == "tomo" else EventData
+    if not isinstance(data, want):
+        raise TypeError(f"{cfg.mode} mode needs {want.__name__}, got "
+                        f"{type(data).__name__}")
 
     econf = _eik_config(eik_cfg)
     device = data.t_obs.device
@@ -88,78 +115,148 @@ def build_posterior(cfg: ModelCfg, data: TomoData, grid: Grid,
                       device=device)
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=device)
     inv_shape = tuple(cfg.inv_shape)
+    joint = cfg.mode == "joint"
+    sample_t0 = joint and not cfg.marginalize_t0
+    if joint:
+        n_ev, n_sta = data.t_obs.shape
+    D = grid.ndim
+
+    def randn(gen, shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
 
     def log_prior(params: Params) -> torch.Tensor:
-        return -0.5 * ((params.u / cfg.prior_sigma_u) ** 2).flatten(1).sum(1)
+        lp = -0.5 * _per_chain_sum((params.u / cfg.prior_sigma_u) ** 2)
+        if params.hypo_raw is not None:
+            lp = lp + box_logjac(params.hypo_raw)
+        if params.t0 is not None:
+            lp = lp - 0.5 * _per_chain_sum((params.t0 / cfg.prior_sigma_t0) ** 2)
+        return lp
 
     def slowness_of(params: Params) -> torch.Tensor:
         return slowness_from_u(params.u, grid, bg)
 
     def predict(params: Params) -> torch.Tensor:
-        return predict_tomo(slowness_of(params), data.src_xyz, data.rec_xyz,
-                            grid, econf, differentiable=differentiable)
+        if not joint:
+            return predict_tomo(slowness_of(params), data.src_xyz,
+                                data.rec_xyz, grid, econf,
+                                differentiable=differentiable)
+        tables = traveltime_tables(slowness_of(params), data.sta_xyz, grid,
+                                   econf, differentiable=differentiable)
+        hypo = box_from_raw(params.hypo_raw, grid)
+        t0 = (params.t0 if params.t0 is not None
+              else torch.zeros(hypo.shape[:-1], dtype=torch.float32,
+                               device=device))
+        return predict_events(tables, hypo, t0, grid)
 
     def log_lik(params: Params) -> torch.Tensor:
         r = data.t_obs - predict(params)
         mask = data.mask
         if mask is not None:
             mask = mask.expand_as(r)
-        return _gaussian_loglik(r, sigma.expand_as(r), mask)
+        sig = sigma.expand_as(r)
+        if joint and cfg.marginalize_t0:
+            return _marginalized_t0_loglik(r, sig, mask)
+        return _gaussian_loglik(r, sig, mask)
 
     def logpost(params: Params) -> torch.Tensor:
         return log_prior(params) + log_lik(params)
 
     def init_params(gen: torch.Generator, n_chains: int,
                     jitter: float = 1.0) -> Params:
-        u = jitter * 0.1 * cfg.prior_sigma_u * torch.randn(
-            (n_chains,) + inv_shape, generator=gen, dtype=torch.float32,
-            device=device)
-        return Params(u=u)
+        """Chain starts near the prior's centre, drawn in the order u,
+        hypo_raw, t0."""
+        u = jitter * 0.1 * cfg.prior_sigma_u * randn(gen, (n_chains,) + inv_shape)
+        if not joint:
+            return Params(u=u)
+        hypo_raw = jitter * 0.5 * randn(gen, (n_chains, n_ev, D))
+        t0 = (jitter * 0.1 * cfg.prior_sigma_t0 * randn(gen, (n_chains, n_ev))
+              if sample_t0 else None)
+        return Params(u=u, hypo_raw=hypo_raw, t0=t0)
 
     def sample_prior(gen: torch.Generator, n: int) -> Params:
-        """``n`` exact draws from the prior, ``u ~ N(0, prior_sigma_u^2 I)``
-        (SMC's initial particles)."""
-        return Params(u=cfg.prior_sigma_u * torch.randn(
-            (n,) + inv_shape, generator=gen, dtype=torch.float32,
-            device=device))
+        """``n`` exact draws from the prior: ``u ~ N(0, prior_sigma_u^2 I)``,
+        ``hypo_raw`` standard logistic (the uniform-in-box prior pushed
+        through the inverse sigmoid), ``t0 ~ N(0, prior_sigma_t0^2)``."""
+        u = cfg.prior_sigma_u * randn(gen, (n,) + inv_shape)
+        if not joint:
+            return Params(u=u)
+        p = torch.rand((n, n_ev, D), generator=gen, dtype=torch.float32,
+                       device=device).clamp(1e-7, 1.0 - 1e-7)
+        hypo_raw = torch.log(p) - torch.log1p(-p)
+        t0 = cfg.prior_sigma_t0 * randn(gen, (n, n_ev)) if sample_t0 else None
+        return Params(u=u, hypo_raw=hypo_raw, t0=t0)
 
     def jacobian(params: Params):
-        """Every row of ``d t_pred / d u`` from ONE forward solve and ONE
-        transport batch: row ``k`` is the VJP of observation ``k`` alone,
+        """Every row of ``d t_pred / d params`` from ONE forward solve and
+        ONE transport batch: row ``k`` is the VJP of observation ``k`` alone,
         whose cotangent lives in one table field, so the rows' fields are
         gathered into a batch of ``n_obs`` and pulled back together (the
-        reference pulls back one-hot cotangents one row at a time)."""
+        reference pulls back one-hot cotangents one row at a time). In
+        joint mode the hypocentre columns of row ``(e, s)`` are the slope
+        of table ``s`` at event ``e``, and its ``t0`` column is 1."""
         u = params.u
         if u.shape[0] != 1:
             raise ValueError(f"jacobian takes one chain, got {u.shape[0]}")
-        n_src, n_rec = data.src_xyz.shape[0], data.rec_xyz.shape[0]
-        if n_src <= n_rec:          # predict_tomo's "auto" choice
+        if joint:
+            n_a, n_b = n_ev, n_sta
+            tab_xyz = data.sta_xyz
+            pt = torch.arange(n_ev, device=device).repeat_interleave(n_sta)
+            tab = torch.arange(n_sta, device=device).repeat(n_ev)
+        elif data.src_xyz.shape[0] <= data.rec_xyz.shape[0]:
+            # predict_tomo's "auto" choice: tables from the sources.
+            n_a, n_b = data.src_xyz.shape[0], data.rec_xyz.shape[0]
             tab_xyz, pt_xyz = data.src_xyz, data.rec_xyz
-            tab = torch.arange(n_src, device=device).repeat_interleave(n_rec)
-            pt = torch.arange(n_rec, device=device).repeat(n_src)
+            tab = torch.arange(n_a, device=device).repeat_interleave(n_b)
+            pt = torch.arange(n_b, device=device).repeat(n_a)
         else:
+            n_a, n_b = data.src_xyz.shape[0], data.rec_xyz.shape[0]
             tab_xyz, pt_xyz = data.rec_xyz, data.src_xyz
-            tab = torch.arange(n_rec, device=device).repeat(n_src)
-            pt = torch.arange(n_src, device=device).repeat_interleave(n_rec)
-        n_obs = n_src * n_rec
+            tab = torch.arange(n_b, device=device).repeat(n_a)
+            pt = torch.arange(n_a, device=device).repeat_interleave(n_b)
+        n_obs = n_a * n_b
         with torch.no_grad():
-            s = slowness_of(params)[0]
-            T = solve_eikonal_batched(s, tab_xyz, grid, econf)
+            T = solve_eikonal_batched(slowness_of(params)[0], tab_xyz, grid,
+                                      econf)
         with torch.enable_grad():
             u_rows = u.detach().expand((n_obs,) + inv_shape).requires_grad_(True)
             T_rows = solve_eikonal_diff_batched(
                 slowness_of(Params(u=u_rows)), tab_xyz[tab], grid, econf,
                 T=T[tab])
-            idx = grid.to_index_coords(pt_xyz[pt]).unsqueeze(1)
+            wrt = [u_rows]
+            if joint:
+                h_rows = params.hypo_raw[0].detach()[pt].requires_grad_(True)
+                wrt.append(h_rows)
+                xyz = box_from_raw(h_rows, grid)
+            else:
+                xyz = pt_xyz[pt]
+            idx = grid.to_index_coords(xyz).unsqueeze(1)
             t_rows = sample_linear(T_rows, idx)[:, 0]
-            (J,) = torch.autograd.grad(t_rows.sum(), u_rows)
-        return t_rows.detach(), J.reshape(n_obs, -1)
+            grads = torch.autograd.grad(t_rows.sum(), wrt)
+        J_u = grads[0].reshape(n_obs, -1)
+        t_rows = t_rows.detach()
+        if not joint:
+            return t_rows, J_u
+        rows = torch.arange(n_obs, device=device)
+        J_h = torch.zeros((n_obs, n_ev, D), dtype=torch.float32, device=device)
+        J_h[rows, pt] = grads[1]
+        blocks = [J_u, J_h.reshape(n_obs, -1)]
+        if params.t0 is not None:
+            t_rows = t_rows + params.t0[0].detach()[pt]
+            J_t = torch.zeros((n_obs, n_ev), dtype=torch.float32, device=device)
+            J_t[rows, pt] = 1.0
+            blocks.append(J_t)
+        return t_rows, torch.cat(blocks, dim=1)
 
-    prior_scales = Params(u=torch.full(inv_shape, cfg.prior_sigma_u,
-                                       dtype=torch.float32, device=device))
-    n_dim = 1
-    for n in inv_shape:
-        n_dim *= n
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    prior_scales = Params(u=full(inv_shape, cfg.prior_sigma_u))
+    if joint:
+        prior_scales = Params(
+            u=prior_scales.u, hypo_raw=full((n_ev, D), 1.0),
+            t0=full((n_ev,), cfg.prior_sigma_t0) if sample_t0 else None)
+    n_dim = sum(int(x.numel()) for x in tree_leaves(prior_scales))
 
     return PosteriorModel(
         logpost=logpost, init_params=init_params, slowness_of=slowness_of,

@@ -4,15 +4,17 @@ Welford moments and thinned collection.
 Counterpart of ``mceik_tpu/samplers/base.py``. The chain axis is the
 leading axis of every state leaf, so one kernel call advances all chains,
 and the JAX package's ``scan`` becomes a Python loop. A kernel takes its
-random draws as tensors, ``kernel(state, hyper, normal, uniform)``: the
+random draws as tensors, ``kernel(state, hyper, *draws)``: by default the
 runner draws ``normal`` (a tree like the params) and ``uniform`` (one per
-chain) from its generator, so a test can hand a kernel JAX's draws instead.
+chain) from its generator; a kernel with other draws carries its own
+``kernel.draw(gen, state)`` (HMC, NUTS). So a test can hand a kernel JAX's
+draws instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -36,6 +38,9 @@ class MCMCResult:
     samples: Any           # thinned draws: tree of (n_collect, C, ...)
     logpost_trace: torch.Tensor  # (n_collect, C)
     accept_trace: torch.Tensor   # (n_collect, C) mean accept prob
+    # Every per-chain info entry of the kernel (accept_prob, divergent,
+    # tree_depth, ...) averaged over each thinning interval: (n_collect, C).
+    info_trace: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def init_chain_states(logpost_fn: Callable, init_params_fn: Callable,
@@ -45,11 +50,18 @@ def init_chain_states(logpost_fn: Callable, init_params_fn: Callable,
     return MHState(params=params, logpost=logpost_fn(params))
 
 
-def _one_step(kernel, states: MHState, hyper, gen: torch.Generator):
+def draw_normal_uniform(gen: torch.Generator, states: MHState):
+    """The default draws: a standard-normal tree like the params and one
+    uniform per chain."""
     normal = tree_random_normal(gen, states.params)
     uniform = torch.rand(states.logpost.shape, generator=gen,
                          dtype=torch.float32, device=states.logpost.device)
-    states, info = kernel(states, hyper, normal, uniform)
+    return normal, uniform
+
+
+def _one_step(kernel, states: MHState, hyper, gen: torch.Generator):
+    draw = getattr(kernel, "draw", draw_normal_uniform)
+    states, info = kernel(states, hyper, *draw(gen, states))
     pooled = {k: v.mean(0) for k, v in info.items()}
     return states, info, pooled
 
@@ -67,7 +79,7 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
              init_welford: Optional[Welford] = None) -> MCMCResult:
     """Run warmup (with adaptation) then sampling (with collection).
 
-    kernel:      (state, hyper, normal, uniform) -> (state, info); info holds
+    kernel:      (state, hyper, *draws) -> (state, info); info holds
                  "accept_prob" per chain.
     adapt_fn:    (hyper, pooled_info, states, t) -> hyper, or None.
     track_fn:    params -> tree whose online moments are accumulated every
@@ -96,22 +108,25 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
         tracked0 = track_fn(states.params)
         welford = welford_init(tree_map(lambda x: x[0], tracked0),
                                batch_shape=(n_chains,))
-    draws, lps, accs = [], [], []
+    draws, lps, infos = [], [], []
     for _ in range(n_steps // thin):
-        acc = torch.zeros_like(states.logpost)
+        sums = None
         for _ in range(thin):
             states, info, _ = _one_step(kernel, states, hyper, gen)
             welford = welford_update(welford, track_fn(states.params))
-            acc = acc + info["accept_prob"]
+            sums = info if sums is None else {k: sums[k] + v
+                                              for k, v in info.items()}
         draws.append(collect_fn(states.params))
         lps.append(states.logpost)
-        accs.append(acc / thin)
+        infos.append({k: v / thin for k, v in sums.items()})
 
     dev = states.logpost.device
     empty = torch.zeros((0, n_chains), dtype=torch.float32, device=dev)
+    info_trace = _stack(infos) if infos else {}
     return MCMCResult(
         states=states, hyper=hyper, welford=welford,
         samples=_stack(draws) if draws else None,
         logpost_trace=torch.stack(lps) if lps else empty,
-        accept_trace=torch.stack(accs) if accs else empty,
+        accept_trace=info_trace.get("accept_prob", empty),
+        info_trace=info_trace,
     )

@@ -1,8 +1,8 @@
 """Tree helpers over parameter containers (``Params``, dicts of tensors).
 
-Counterpart of the pieces of ``mceik_tpu/utils.py`` adaptive Metropolis
-uses. A tree is a tensor, a dict of trees or a dataclass of trees; ``None``
-leaves are skipped, as in a JAX pytree.
+Counterpart of ``mceik_tpu/utils.py``. A tree is a tensor, a dict of
+trees or a dataclass of trees; ``None`` leaves are skipped, as in a JAX
+pytree. Trees of chain states carry a leading chain axis on every leaf.
 """
 
 from __future__ import annotations
@@ -54,3 +54,31 @@ def tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
 
 def tree_size(tree: Any) -> int:
     return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def per_chain(c, x: torch.Tensor):
+    """A scalar as it is; a ``(C,)`` tensor shaped to broadcast along the
+    chain axis of ``x``."""
+    if isinstance(c, torch.Tensor) and c.ndim == 1:
+        return c.reshape(c.shape + (1,) * (x.ndim - 1))
+    return c
+
+
+def tree_mul(a: Any, b: Any) -> Any:
+    return tree_map(torch.mul, a, b)
+
+
+def tree_axpy(c, x: Any, y: Any) -> Any:
+    """``y + c * x``; ``c`` a scalar or one value per chain."""
+    return tree_map(lambda xi, yi: yi + per_chain(c, xi) * xi, x, y)
+
+
+def tree_dot(a: Any, b: Any) -> torch.Tensor:
+    """Per-chain inner product of two chain-batched trees: ``(C,)``, each
+    leaf summed over its non-chain axes and the leaves added in order."""
+    parts = [(x * y).flatten(1).sum(1)
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out

@@ -66,7 +66,9 @@ def test_package_imports_without_jax():
             "mceik_tpu_torch.eikonal.adjoint, "
             "mceik_tpu_torch.eikonal.adjoint_sweep, "
             "mceik_tpu_torch.model.laplace, mceik_tpu_torch.samplers.am_full, "
-            "mceik_tpu_torch.samplers.mala\n"
+            "mceik_tpu_torch.samplers.mala, mceik_tpu_torch.samplers.hmc, "
+            "mceik_tpu_torch.samplers.nuts, mceik_tpu_torch.samplers.pcn, "
+            "mceik_tpu_torch.model.whitened, mceik_tpu_torch.diag.profile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mceik_tpu'))\n"
             "print(bad)\n")
@@ -136,7 +138,7 @@ def test_cli_refuses_missing_card_and_later_slices():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["run", C2, *TINY])
     with pytest.raises(NotImplementedError, match="slice"):
-        cli.main(["run", C2, *TINY, "sampler.algorithm=hmc", "--device", "cpu"])
+        cli.main(["run", C2, *TINY, "model.mode=locate", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="slice"):
         cli.main(["run", C2, *TINY, "model.noise_model=hierarchical",
                   "--device", "cpu"])

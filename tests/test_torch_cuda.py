@@ -234,3 +234,51 @@ def test_sweep2d_wrapper_checks_inputs(dev):
         k(T0.cpu(), s.cpu(), fl.cpu(), g.spacing, 2)
     done = torch.ones(2, dtype=torch.bool, device=dev)
     assert torch.equal(k(T0, s, fl, g.spacing, 2, done), T0)
+
+
+# Config 3's batch: 8 chains x 16 surface stations = 128 fields of 48x48x32
+# (planes of 1536 and 2304 nodes).
+C3_SHAPE = (48, 48, 32)
+
+
+def _c3_batch(dev, B=128, seed=8):
+    gen = torch.Generator().manual_seed(seed)
+    g = Grid(C3_SHAPE, (1.0, 1.0, 1.0))
+    u = 0.2 * torch.randn((B, 10, 10, 8), generator=gen)
+    s = slowness_from_u(u, g, torch.tensor(1.0)).to(dev)
+    xy = (0.05 + 0.9 * torch.rand((B, 2), generator=gen)) * 47.0
+    srcs = torch.cat([xy, torch.zeros((B, 1))], dim=1).to(dev)
+    T0, frozen = seed_source(s, srcs, g, 3.0)
+    return g, s, srcs, T0, frozen
+
+
+@pytest.mark.cuda
+def test_kernels_at_config3_batch(dev):
+    """K1 and K4 on config 3's 128 x 48x48x32 batch: the wrapper's checks
+    pass (27.6 KB and 46 KB of shared memory, 1024 threads for the 2304-node
+    planes); one K1 cycle and a solve at tol 1e-3 equal the plain ones
+    (bar 1e-4), one K4 cycle equals the plain one (bar 1e-5 of max|plain|)."""
+    from mceik_tpu_torch.eikonal.cuda_build import launch_threads, plane_smem
+    assert plane_smem(3)(C3_SHAPE) == 27648
+    assert plane_smem(5)(C3_SHAPE) == 46080
+    assert launch_threads((128,) + C3_SHAPE) == 1024
+    g, s, srcs, T0, frozen = _c3_batch(dev)
+    fl = seed_floor(T0, frozen)
+    out = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2)
+    ref = sweep_cycle_plain(T0, s, fl, g.spacing, 2)
+    assert float((out - ref).abs().max()) <= 1e-4
+    cfg = EikonalConfig(tol=1e-3, max_iters=20)
+    T = solve_eikonal_batched(s, srcs, g, cfg)
+    T_p = solve_eikonal_batched(s, srcs, g, EikonalConfig(
+        tol=1e-3, max_iters=20, use_pallas="off"))
+    assert torch.isfinite(T).all()
+    assert float((T - T_p).abs().max()) <= 1e-4
+    ws = transport_weights(T, s, frozen, g.spacing)
+    gg = 0.1 * torch.randn(T.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    launches = cuda_transport.TRANSPORT3D.launches
+    lam = cuda_transport.transport_cycle(gg, gg, ws, 2)
+    torch.cuda.synchronize()
+    assert cuda_transport.TRANSPORT3D.launches == launches + 1
+    lam_p = transport_cycle_plain(gg, gg, ws, 2)
+    assert float((lam - lam_p).abs().max()) <= 1e-5 * float(lam_p.abs().max())
