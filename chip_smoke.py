@@ -11,8 +11,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build of every kernel on the main paths from the sources in the
    checkout, one ``nvcc`` per source, all started together: K1, the 3-D
    sweep cycle (``csrc/sweep3d.cu``), K4, the adjoint transport cycle
-   (``csrc/transport3d.cu``), and K3, the 2-D sweep cycle
-   (``csrc/sweep2d.cu``);
+   (``csrc/transport3d.cu``), K3, the 2-D sweep cycle
+   (``csrc/sweep2d.cu``), and K5, the adjoint transport cycle of fields
+   whose planes K4 cannot hold (the second entry point of
+   ``csrc/transport3d.cu``, built with K4);
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes and on edge cases (bar: max abs traveltime difference <= 1e-4);
 4. K4 against its plain version (bar: max abs difference <= 1e-5 of the
@@ -20,6 +22,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    64^3, cotangents of the config-2 log-likelihood), an odd anisotropic
    non-cube batch, and a mixed batch with a zero, contractive and divergent
    field (the divergent one must come back all NaN, the others untouched);
+   and K5 forced on the main-path batch against K4 (bar as K4's);
 5. the logpost gradient of 16 chains at config-2 width through K1 + K4
    against the same gradient through the plain solves on the card (bar:
    1e-5 of its max abs), and against a central finite difference along one
@@ -68,11 +71,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    acceptance statistic printed;
 14. a short HMC run on config 3 through the CLI (8 leapfrog steps, 6
    warmup steps for the dual averaging to pull the config's step down): K1
-   and K4 launched, logposts finite and rising.
+   and K4 launched, logposts finite and rising;
+15. K1 and K5 at config 5's 128^3 batch, 4 prior-drawn chains x 24
+   surface stations = 96 fields (the route whose TPU solves are the
+   blocked ones, ``sweep_solve_pallas_blocked`` and
+   ``transport_solve_pallas_blocked``): K1 one cycle against the plain
+   cycle (bar 1e-4) and a solve at the config's tol (cycles counted, and
+   the cycles the tol needs without the config's ``max_iters``), K5
+   one cycle with cotangents of config 5's joint log-likelihood against the
+   plain cycle (bar 1e-5 of its max abs) and a solve (cycles counted);
+16. config 5's joint NUTS with spike-slab noise through
+   ``mceik_tpu_torch.cli.main(["run", "configs/c5_pod_nuts.json", ...])``
+   at full width (128^3 grid, 16^3 basis, 32 events, 24 stations,
+   ``dist.multihost`` on, which warns and runs as one process) with 4
+   chains and the depth cut (max tree depth 2, 4 warmup and 2 sampling
+   steps), counts reset and read: K1 and K5 launched, logposts finite and
+   rising, every indicator in {0, 1}.
 
 The line before the last is a JSON object listing the kernels with their
-launch counts (K1 and K4 on the MALA path, K3 on the SMC path; K1's and
-K4's config-3 NUTS counts and times and K3's config-1 times beside),
+launch counts (K1 and K4 on the MALA path, K3 on the SMC path, K5 on the
+config-5 path; K1's and K4's config-3 NUTS counts and times, K1's config-5
+counts and times, K5's time forced on config 2's batch and K3's config-1
+times beside),
 errors, times and bounds (the larger of
 bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, counted from
 each kernel's source at the shapes timed); the last line is
@@ -98,6 +118,7 @@ MALA_CONFIG = os.path.join(REPO, "configs", "c2_mala.json")
 C1_CONFIG = os.path.join(REPO, "configs", "c1_crosswell.json")
 C4_CONFIG = os.path.join(REPO, "configs", "c4_smc.json")
 C3_CONFIG = os.path.join(REPO, "configs", "c3_joint_events.json")
+C5_CONFIG = os.path.join(REPO, "configs", "c5_pod_nuts.json")
 K1_BAR = 1e-4       # K1 vs plain, max abs traveltime difference
 K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
 LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
@@ -122,6 +143,13 @@ C3_NUTS_ARGS = ["sampler.n_warmup=8", "sampler.n_samples=8",
                 "sampler.max_tree_depth=4", "io.log_every=4"]
 C3_HMC_ARGS = ["sampler.algorithm=hmc", "sampler.n_leapfrog=8",
                "sampler.n_warmup=6", "sampler.n_samples=4", "io.log_every=4"]
+# c5_pod_nuts.json at full width but 4 of its 1024 chains (1024 x 24 fields
+# of 8 MB do not fit one card); depth cut from 500 warmup and 2000 sampling
+# steps at max tree depth 7.
+C5_CHAINS = 4
+C5_ARGS = [f"sampler.n_chains={C5_CHAINS}", "sampler.max_tree_depth=2",
+           "sampler.n_warmup=4", "sampler.n_samples=2", "sampler.thin=1",
+           "io.log_every=1"]
 
 # The card's peaks (H100 SXM data sheet, at 700 W): fp32 outside the tensor
 # cores and HBM bandwidth.
@@ -199,7 +227,8 @@ def _timed(fn, reps=1):
 
 
 def _build_all(kernels):
-    """Build every kernel at once (one nvcc each); raise the first error."""
+    """Build every kernel at once (one nvcc per source; entry points of one
+    source share its build); raise the first error."""
     errors = []
 
     def build(k):
@@ -218,9 +247,12 @@ def _build_all(kernels):
         raise errors[0]
     if any(t.is_alive() for t in threads):
         raise RuntimeError("a kernel build did not finish")
-    print(f"build: {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s")
+    n_src = len({k.source for k in kernels})
+    print(f"build: {len(kernels)} kernels from {n_src} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
     for k in kernels:
-        print(f"build: {k.source.relative_to(REPO)} in {k.build_seconds:.2f} s")
+        print(f"build: {k.symbol} ({k.source.relative_to(REPO)}) in "
+              f"{k.build_seconds:.2f} s")
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
@@ -311,8 +343,8 @@ def main() -> int:
 
     # 2. Build.
     k1, k4 = cuda_sweep.SWEEP3D, cuda_transport.TRANSPORT3D
-    k3 = cuda_sweep2d.SWEEP2D
-    _build_all([k1, k4, k3])
+    k3, k5 = cuda_sweep2d.SWEEP2D, cuda_transport.TRANSPORT3D_LARGE
+    _build_all([k1, k4, k3, k5])
 
     # 3. K1 vs plain, on the card.
     cfg = load_config(AM_CONFIG)
@@ -320,7 +352,8 @@ def main() -> int:
     on = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="on")
     off = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="off")
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": []}
+    errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": [],
+            "transport3d_large_cycle": []}
 
     def compare(label, s, srcs, g):
         launches0 = k1.launches
@@ -422,17 +455,18 @@ def main() -> int:
         raise RuntimeError(f"c: homogeneous solve off the analytic ({analytic})")
 
     # 4. K4 vs plain, on the card.
-    def k4_check(label, out_k, out_p, finite_fields=None):
+    def k4_check(label, out_k, out_p, finite_fields=None, name="K4"):
         sel = slice(None) if finite_fields is None else finite_fields
         scale = float(out_p[sel].abs().max())
         err = float((out_k[sel] - out_p[sel]).abs().max())
-        print(f"K4 compare {label}: max|kernel-plain| = {err:.3e} "
-              f"(max|plain| {scale:.3e})")
+        print(f"{name} compare {label}: max|kernel-reference| = {err:.3e} "
+              f"(max|reference| {scale:.3e})")
         if not bool(torch.isfinite(out_k[sel]).all()) or \
                 not err <= K4_REL_BAR * scale:
-            raise RuntimeError(f"K4 {label}: kernel disagrees with plain "
-                               f"({err} vs bar {K4_REL_BAR * scale})")
-        errs["transport3d_cycle"].append(err)
+            raise RuntimeError(f"{name} {label}: kernel disagrees with its "
+                               f"reference ({err} vs bar {K4_REL_BAR * scale})")
+        errs["transport3d_cycle" if name == "K4"
+             else "transport3d_large_cycle"].append(err)
 
     def k4_solve_pair(label, g, ws, tol, max_cycles):
         launches0 = k4.launches
@@ -471,6 +505,17 @@ def main() -> int:
     k4_check("a (main-path batch, solve)",
              *k4_solve_pair("a", g_a, ws_a, cfg.eikonal.tol,
                             cfg.eikonal.max_iters))
+    # K5 forced on the same batch: the same cycle with the in-plane weights
+    # read from global memory, so it must equal K4.
+    launches0 = k5.launches
+    lam1_k5, ms_k5_c2 = _timed(lambda: cuda_transport.transport_cycle(
+        g_a, g_a, ws_a, cfg.eikonal.n_inner, done, kernel=k5), reps=10)
+    if k5.launches == launches0:
+        raise RuntimeError("K5 forced on c2: the kernel was not launched")
+    print(f"K5 forced on c2's batch B={g_a.shape[0]} grid={grid.shape}: ms "
+          f"per launch {ms_k5_c2:.3f} (K4 {ms_k4:.3f})")
+    k4_check("c2 batch, forced, against K4 (one cycle)", lam1_k5, lam1_k,
+             name="K5")
 
     # (b) odd batch, non-cube grid, unequal spacing.
     _, frozen_b = seed_source(s_b, srcs_b, g_b, 3.0)
@@ -926,6 +971,144 @@ def main() -> int:
           f"{samp[-1]['logpost_mean']}; acceptance {mean('accept'):.4f}; "
           f"{rate_all:.3f} chain-steps/s over {steps} steps (cli wall "
           f"{wall:.1f} s)")
+    del post3, data3, p3, s3, srcs3, fl3, T3, ct3
+    torch.cuda.empty_cache()
+    print(f"phases 1-14 wall {time.perf_counter() - t_start:.1f} s")
+
+    # 15. K1 and K5 at config 5's 128^3 batch: prior-drawn chains x stations.
+    c5 = load_config(C5_CONFIG)
+    g5 = c5.grid.build()
+    data5, _ = make_dataset(g5, c5.data, c5.model, device=dev)
+    post5 = build_posterior(c5.model, data5, g5, c5.eikonal)
+    n_sta5 = data5.sta_xyz.shape[0]
+    p5 = post5.sample_prior(gen, C5_CHAINS)
+    s5 = post5.slowness_of(p5).unsqueeze(1).expand(
+        (C5_CHAINS, n_sta5) + g5.shape).reshape((-1,) + g5.shape).contiguous()
+    srcs5 = data5.sta_xyz.repeat(C5_CHAINS, 1)
+    ecfg5 = EikonalConfig(tol=c5.eikonal.tol, max_iters=c5.eikonal.max_iters,
+                          n_inner=c5.eikonal.n_inner,
+                          seed_radius=c5.eikonal.seed_radius)
+    T0_5, frozen5 = seed_source(s5, srcs5, g5, ecfg5.seed_radius)
+    fl5 = seed_floor(T0_5, frozen5)
+    done5 = torch.zeros(T0_5.shape[0], dtype=torch.bool, device=dev)
+    l1 = k1.launches
+    T1k5, ms_k1_c5 = _timed(lambda: cuda_sweep.sweep_cycle(
+        T0_5, s5, fl5, g5.spacing, ecfg5.n_inner, done5), reps=3)
+    if k1.launches == l1:
+        raise RuntimeError("K1 c5 cycle: the kernel was not launched")
+    T1p5, ms_k1_c5_plain = _timed(lambda: sweep_cycle_plain(
+        T0_5, s5, fl5, g5.spacing, ecfg5.n_inner, done5))
+    err_c5 = float((T1k5 - T1p5).abs().max())
+    del T1k5, T1p5
+    l1 = k1.launches
+    T5, ms_s5k = _timed(lambda: solve_eikonal_batched(
+        s5, srcs5, g5, dataclasses.replace(ecfg5, use_pallas="on")))
+    cycles5 = (k1.launches - l1) / 2     # the warm-up call and the timed one
+    print(f"K1 compare c5 batch: B={T0_5.shape[0]} grid={g5.shape}: one cycle "
+          f"max|kernel-plain| = {err_c5:.3e}, ms per launch kernel "
+          f"{ms_k1_c5:.3f}, plain {ms_k1_c5_plain:.3f}; kernel solve at tol "
+          f"{ecfg5.tol}: {cycles5:.0f} cycles, {ms_s5k:.3f} ms")
+    if not (bool(torch.isfinite(T5).all()) and err_c5 <= K1_BAR):
+        raise RuntimeError(f"K1 c5: kernel disagrees with plain ({err_c5})")
+    errs["sweep3d_cycle"].append(err_c5)
+    del T0_5, fl5
+    # The config's max_iters against the cycles its tol needs at 128^3.
+    l1 = k1.launches
+    T5c = solve_eikonal_batched(s5, srcs5, g5, dataclasses.replace(
+        ecfg5, max_iters=300))
+    gap = (T5 - T5c).abs().flatten(1).amax(1)
+    print(f"K1 c5 batch to tol {ecfg5.tol} without the config's max_iters "
+          f"{ecfg5.max_iters}: {k1.launches - l1} cycles; at "
+          f"{ecfg5.max_iters} the traveltimes differ by up to "
+          f"{float(gap.max()):.4f} (max T {float(T5c.max()):.2f}), on "
+          f"{int((gap > c5.model.sigma).sum())} of {gap.numel()} fields by "
+          f"more than sigma {c5.model.sigma}")
+    del T5c, gap
+
+    T5g = T5.clone().requires_grad_(True)
+    resid5 = data5.t_obs - predict_events(
+        T5g.reshape((C5_CHAINS, n_sta5) + g5.shape),
+        box_from_raw(p5.hypo_raw, g5), p5.t0, g5)
+    (ct5,) = torch.autograd.grad(_gaussian_loglik(
+        resid5, torch.full_like(resid5, c5.model.sigma), None).sum(), T5g)
+    del T5g, resid5
+    ws5 = transport_weights(T5, s5, frozen5, g5.spacing)
+    if cuda_transport.transport_kernel_for(g5.shape) is not k5:
+        raise RuntimeError("c5: the transport dispatch did not pick K5")
+    l5 = k5.launches
+    lam1k5, ms_k5 = _timed(lambda: cuda_transport.transport_cycle(
+        ct5, ct5, ws5, ecfg5.n_inner, done5), reps=3)
+    if k5.launches == l5:
+        raise RuntimeError("K5 c5 cycle: the kernel was not launched")
+    lam1p5, ms_k5_plain = _timed(lambda: transport_cycle_plain(
+        ct5, ct5, ws5, ecfg5.n_inner, done5))
+    print(f"K5 one cycle, c5 batch B={ct5.shape[0]} grid={g5.shape}: ms per "
+          f"launch: kernel {ms_k5:.3f}, plain {ms_k5_plain:.3f}")
+    k4_check("c5 batch (joint log-likelihood cotangents, one cycle)",
+             lam1k5, lam1p5, name="K5")
+    del lam1k5, lam1p5
+    l5 = k5.launches
+    lam5, ms_sk5 = _timed(lambda: transport_solve(
+        ct5, ws5, ecfg5.tol, ecfg5.max_iters, ecfg5.n_inner,
+        cycle=cuda_transport.transport_cycle))
+    tcycles5 = (k5.launches - l5) / 2
+    print(f"K5 solve c5 batch at tol {ecfg5.tol}: {tcycles5:.0f} cycles, "
+          f"{ms_sk5:.3f} ms, finite {bool(torch.isfinite(lam5).all())}")
+    if not bool(torch.isfinite(lam5).all()):
+        raise RuntimeError("K5 c5 solve: non-finite adjoint")
+    b_k1_c5, _ = _bound(s5.numel(), 16, _k1_ops(ecfg5.n_inner))
+    b_k5, by_k5 = _bound(s5.numel(), 24, _k4_ops(ecfg5.n_inner))
+    b_k5_c2, _ = _bound(s_a.numel(), 24, _k4_ops(cfg.eikonal.n_inner))
+    del post5, data5, p5, s5, srcs5, T5, frozen5, ct5, ws5, lam5
+    torch.cuda.empty_cache()
+
+    # 16. Config 5's NUTS with spike-slab noise at full width, 4 chains,
+    # through the CLI. The run's summary is kept (the CLI prints it and
+    # returns 0) to read the indicators.
+    from mceik_tpu_torch import api
+    summaries = []
+    api_run = api.run
+
+    def keep_summary(*a, **kw):
+        summaries.append(api_run(*a, **kw))
+        return summaries[-1]
+
+    k1.launches = k4.launches = k3.launches = k5.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    api.run = keep_summary
+    try:
+        recs, _, wall = _run_cli(cli, ["run", C5_CONFIG, *C5_ARGS])
+    finally:
+        api.run = api_run
+    c5_launches = {"sweep3d_cycle": k1.launches,
+                   "transport3d_large_cycle": k5.launches}
+    if min(c5_launches.values()) <= 0:
+        raise RuntimeError(f"c5 path: a kernel was never launched "
+                           f"({c5_launches})")
+    c5_run = apply_overrides(c5, C5_ARGS)
+    # The annealed warmup takes one more step on each of its 4 rungs.
+    init, samp, steps, rate_all, _ = _check_run(
+        recs, "c5 path", c5_run.sampler.n_warmup + 4, C5_CHAINS)
+    if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+        raise RuntimeError(f"c5 path: logpost did not rise "
+                           f"({init['logpost_mean']} -> "
+                           f"{samp[-1]['logpost_mean']})")
+    z5 = torch.as_tensor(summaries[-1].samples.noise_z)
+    zs = summaries[-1].result.states.params.noise_z
+    if not (bool(((z5 == 0) | (z5 == 1)).all())
+            and bool(((zs == 0) | (zs == 1)).all())):
+        raise RuntimeError("c5 path: an indicator left {0, 1}")
+    warm = [r for r in recs if r["phase"] == "warmup"]
+    print(f"c5 path (joint NUTS, spike-slab, {C5_CHAINS} chains x {n_sta5} "
+          f"stations of 128^3): launches {c5_launches} (K4 {k4.launches}); "
+          f"logpost_mean {init['logpost_mean']} -> "
+          f"{warm[0]['logpost_mean'] if warm else None} after the annealed "
+          f"warmup -> {samp[-1]['logpost_mean']}; inclusion "
+          f"{[r['noise_inclusion'] for r in warm + samp]}; mean tree depth "
+          f"{mean('tree_depth'):.3f}; {rate_all:.4f} chain-steps/s over "
+          f"{steps} steps after init; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (cli wall "
+          f"{wall:.1f} s)")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
@@ -954,6 +1137,10 @@ def main() -> int:
         "c3_ms": ms_k1_c3,
         "c3_plain_ms": ms_k1_c3_plain,
         "c3_bound_ms": b_k1_c3,
+        "c5_launches": c5_launches["sweep3d_cycle"],
+        "c5_ms": ms_k1_c5,
+        "c5_plain_ms": ms_k1_c5_plain,
+        "c5_bound_ms": b_k1_c5,
     }, {
         "name": "transport3d_cycle",
         "route": "cuda",
@@ -985,6 +1172,21 @@ def main() -> int:
         "c1_ms": ms_k3_c1,
         "c1_plain_ms": ms_k3_c1_plain,
         "c1_bound_ms": b_k3_c1,
+    }, {
+        "name": "transport3d_large_cycle",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/transport3d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_transport.py:132 (blocked "
+                    "route :164, :181, :216)",
+        "launches": c5_launches["transport3d_large_cycle"],
+        "max_abs_err": max(errs["transport3d_large_cycle"]),
+        "ms": ms_k5,
+        "plain_ms": ms_k5_plain,
+        "bound_ms": b_k5,
+        "bound_by": by_k5,
+        "library_ms": None,
+        "c2_forced_ms": ms_k5_c2,
+        "c2_bound_ms": b_k5_c2,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,21 +1,26 @@
 """Top-level API: ``run(config, device) -> RunSummary``.
 
-Counterpart of ``mceik_tpu/api.py`` for the tomo and joint posteriors with
-fixed noise: config -> grid -> synthetic data -> posterior -> sampler (rwm,
-am, am_full, pcn, mala, hmc or nuts; MALA with an optional Laplace
-preconditioner, and hmc, nuts and pcn optionally in the whitened
-coordinates of a Laplace fit), sampled in segments of ``io.log_every``
-steps with one JSONL metrics record per segment (plus one for the Laplace
-setup and one for the initial states), then pooled moments and
-diagnostics. Welford moments carry across segments, so segmentation never
-changes the statistics. SMC has its own entry point,
-``samplers.smc.run_smc_config``, which the CLI calls.
+Counterpart of ``mceik_tpu/api.py`` for the tomo and joint posteriors under
+fixed, hierarchical or spike-slab noise: config -> grid -> synthetic data
+-> posterior -> sampler (rwm, am, am_full, pcn, mala, hmc or nuts; MALA
+with an optional Laplace preconditioner, and hmc, nuts and pcn optionally
+in the whitened coordinates of a Laplace fit), sampled in segments of
+``io.log_every`` steps with one JSONL metrics record per segment (plus one
+for the Laplace setup and one for the initial states), then pooled moments
+and diagnostics. Welford moments carry across segments, so segmentation
+never changes the statistics. Under spike-slab noise every step is the
+continuous kernel followed by the exact Gibbs scan over the station
+indicators, and the warmup anneals the scan's odds (``spike_slab_warmup``).
+SMC has its own entry point, ``samplers.smc.run_smc_config``, which the CLI
+calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,9 +32,10 @@ from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
 from mceik_tpu_torch.io.metrics import MetricsLogger
 from mceik_tpu_torch.model.params import Params, box_logjac
-from mceik_tpu_torch.model.posterior import build_posterior
+from mceik_tpu_torch.model.posterior import build_posterior, noise_gibbs_draws
 from mceik_tpu_torch.samplers import am, am_full, hmc, mala, nuts, pcn, rwm
-from mceik_tpu_torch.samplers.base import MCMCResult, init_chain_states, run_mcmc
+from mceik_tpu_torch.samplers.base import (MCMCResult, draw_normal_uniform,
+                                           init_chain_states, run_mcmc)
 from mceik_tpu_torch.utils import tree_map
 
 SAMPLERS = ("rwm", "am", "am_full", "pcn", "mala", "hmc", "nuts")
@@ -67,18 +73,59 @@ def _check_supported(config: RunConfig) -> None:
         raise ValueError(f"unknown sampler {scfg.algorithm!r}: the port runs "
                          f"{', '.join(SAMPLERS)} and smc")
     check_run_options(config)
+    check_noise_options(config)
 
 
 def check_run_options(config: RunConfig) -> None:
-    """Refuse the io and dist options of later slices (every sampler)."""
+    """Refuse the io and dist options of later slices (every sampler).
+
+    ``dist.multihost`` without a multi-process launcher (``WORLD_SIZE``
+    unset or 1) warns and runs as one process on the requested device, as
+    the reference's ``init_distributed`` falls back when no coordinator
+    answers; more than one process or device is the distribution slice."""
     io, dist = config.io, config.dist
     if io.checkpoint_path or io.resume or io.checkpoint_every:
-        raise NotImplementedError("checkpointing and resume are slice 5 of "
+        raise NotImplementedError("checkpointing and resume are slice 6 of "
                                   "the port")
     if io.profile_dir:
         raise NotImplementedError("io.profile_dir: profiling is not ported")
-    if dist.multihost or (dist.n_devices or 1) > 1:
-        raise NotImplementedError("multi-device runs are slice 6 of the port")
+    world = os.environ.get("WORLD_SIZE", "") or "1"
+    if (dist.n_devices or 1) > 1 or world != "1":
+        raise NotImplementedError(
+            f"multi-device runs (dist.n_devices={dist.n_devices}, "
+            f"WORLD_SIZE={world}) are the distribution slice of the port, "
+            "slice 7")
+    if dist.multihost:
+        warnings.warn("dist.multihost=true but no multi-process launcher "
+                      "(WORLD_SIZE unset or 1): continuing as one process on "
+                      "the requested device")
+
+
+def check_noise_options(config: RunConfig) -> None:
+    """The reference's refusals under spike-slab noise, with its reasons
+    (``run`` and the profiler call it before any setup)."""
+    if config.model.resolved_noise_model() != "spike_slab":
+        return
+    scfg = config.sampler
+    if scfg.algorithm in ("hmc", "nuts", "pcn") and \
+            scfg.precondition == "whitened":
+        raise ValueError(
+            "spike_slab noise is not supported with "
+            "precondition='whitened': the indicator Gibbs sweep operates on "
+            "model params while the chain state lives in whitened "
+            "coordinates")
+    if scfg.algorithm == "pcn":
+        raise ValueError(
+            "spike_slab noise is not supported with the pcn sampler (its "
+            "state tracks log_lik, not the full posterior, and "
+            "prior-reversible rotation is undefined for indicators)")
+    if scfg.algorithm == "mala":
+        raise ValueError(
+            "spike_slab noise is not supported with the mala sampler: the "
+            "indicator Gibbs sweep changes the likelihood weights behind "
+            "MALA's cached gradient (MALAState.grad), which would bias the "
+            "Langevin drift; use hmc/nuts (recompute gradients every "
+            "leapfrog) or am/am_full")
 
 
 def prepare_device(device) -> torch.device:
@@ -97,6 +144,13 @@ def prepare_device(device) -> torch.device:
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def _logpost_stats(logpost: torch.Tensor) -> dict:
+    lp = _to_numpy(logpost)
+    return {"logpost_mean": round(float(lp.mean()), 3),
+            "logpost_min": round(float(lp.min()), 3),
+            "logpost_max": round(float(lp.max()), 3)}
 
 
 def _step_size_of(hyper) -> float:
@@ -236,6 +290,69 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
             states, None)
 
 
+def _wrap_noise_gibbs(kernel, gibbs, beta: float = 1.0):
+    """Compose a continuous kernel with the exact trans-dimensional noise
+    Gibbs scan (``PosteriorModel.noise_gibbs``): the continuous move, then
+    the indicator scan and the pseudo-prior refresh, the logpost updated
+    from the same residuals. ``beta`` tempers only the indicator odds
+    (warmup annealing); the state's logpost is always the un-tempered
+    posterior. The composed kernel takes the base kernel's draws followed
+    by the scan's uniforms and normals (its ``draw`` gives them)."""
+    base_draw = getattr(kernel, "draw", draw_normal_uniform)
+
+    def composed(state, hyper, base_draws, uniforms, fresh):
+        state, info = kernel(state, hyper, *base_draws)
+        params, lp_prior, lp_lik = gibbs(state.params, uniforms, fresh, beta)
+        return dataclasses.replace(state, params=params,
+                                   logpost=lp_prior + lp_lik), info
+
+    def draw(gen: torch.Generator, state):
+        base = base_draw(gen, state)
+        return (base,) + noise_gibbs_draws(gen, state.params)
+
+    composed.draw = draw
+    return composed
+
+
+def spike_slab_warmup(base_kernel, gibbs, adapter, states, hyper,
+                      gen: torch.Generator, n_warmup: int, finalize_fn=None,
+                      betas=(0.05, 0.2, 0.5, 1.0)):
+    """Annealed-Gibbs warmup for spike-slab noise: the indicator odds are
+    tempered up the ladder ``betas``, ``n_warmup // len(betas)`` adapted
+    steps per rung (the last rung takes the rest) and one more step each,
+    as the reference runs them. Genuinely noisy stations, whose likelihood
+    ratio is huge, are flagged almost at once while clean ones keep full
+    weight until the field has converged; without the ramp a transiently
+    misfit clean station flips on at beta = 1 and the field loses the pull
+    that would fit it. The last rung is beta = 1, so the kernel after
+    warmup is the exact one. Returns ``(states, hyper)``."""
+    w = max(n_warmup // len(betas), 1)
+    parts = [w] * (len(betas) - 1) + [max(n_warmup - w * (len(betas) - 1), 1)]
+    for beta, part in zip(betas, parts):
+        r = run_mcmc(_wrap_noise_gibbs(base_kernel, gibbs, beta), adapter,
+                     states, hyper, gen, n_warmup=part, n_steps=1)
+        states, hyper = r.states, r.hyper
+    if finalize_fn is not None:
+        hyper = finalize_fn(hyper)
+    return states, hyper
+
+
+def with_noise_gibbs(posterior, kernel, adapter, states, hyper, finalize_fn,
+                     gen: torch.Generator, n_warmup: int):
+    """Under spike-slab noise: run the annealed warmup and return the
+    continuous kernel composed with the exact Gibbs scan, with no warmup
+    left. Otherwise everything as it came. Returns ``(kernel, states, hyper,
+    n_warmup)``."""
+    gibbs = posterior.noise_gibbs
+    if gibbs is None:
+        return kernel, states, hyper, n_warmup
+    if n_warmup > 0:
+        states, hyper = spike_slab_warmup(kernel, gibbs, adapter, states,
+                                          hyper, gen, n_warmup,
+                                          finalize_fn=finalize_fn)
+    return _wrap_noise_gibbs(kernel, gibbs), states, hyper, 0
+
+
 def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     """Sample the config's posterior on ``device`` ("cuda" or "cpu")."""
     _check_supported(config)
@@ -251,6 +368,18 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     kernel, adapter, hyper, finalize_fn, states, params_of = \
         _dispatch_sampler(scfg, posterior, gen, logger)
     collect_fn = params_of if params_of is not None else (lambda p: p)
+    if logger is not None:
+        logger.log({"phase": "init", "step": 0, "device": str(device),
+                    **_logpost_stats(states.logpost)})
+    kernel, states, hyper, n_warmup = with_noise_gibbs(
+        posterior, kernel, adapter, states, hyper, finalize_fn, gen,
+        scfg.n_warmup)
+    if logger is not None and n_warmup < scfg.n_warmup:
+        # The annealed spike-slab warmup ran apart from the segments.
+        logger.log({"phase": "warmup", "step": 0,
+                    "noise_inclusion": round(float(
+                        states.params.noise_z.mean()), 4),
+                    **_logpost_stats(states.logpost)})
 
     def track_fn(params):
         # Whitened chains carry u; moments always see model params.
@@ -261,14 +390,7 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     seg = max(1, min(seg, scfg.n_samples))
     n_seg = max(1, scfg.n_samples // seg)
     n_steps_actual = n_seg * seg
-    n_warmup = scfg.n_warmup
 
-    if logger is not None:
-        lp0 = _to_numpy(states.logpost)
-        logger.log({"phase": "init", "step": 0, "device": str(device),
-                    "logpost_mean": round(float(lp0.mean()), 3),
-                    "logpost_min": round(float(lp0.min()), 3),
-                    "logpost_max": round(float(lp0.max()), 3)})
     t0 = time.perf_counter()
     seg_results = []
     welford = None
@@ -290,6 +412,11 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
             last = lp[-1] if len(lp) else _to_numpy(states.logpost)
             extra = {k: round(float(r.info_trace[k].mean()), 4)
                      for k in ("divergent", "tree_depth") if k in r.info_trace}
+            z = collect_fn(states.params).noise_z
+            if z is not None:
+                # Pooled inclusion rate: the share of (chain, station)
+                # indicators on the slab after the segment.
+                extra["noise_inclusion"] = round(float(z.mean()), 4)
             logger.log({
                 "phase": "sample", "step": step_done,
                 "accept": round(float(np.mean(_to_numpy(r.accept_trace))), 4),

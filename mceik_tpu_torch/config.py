@@ -43,15 +43,19 @@ class ModelCfg:
 
     mode: "tomo" (slowness only, known sources), "joint" (slowness +
     hypocenters + origin times) or "locate" (hypocenters over a fixed
-    slowness). The port runs "tomo" and "joint" with fixed noise.
+    slowness). The port runs "tomo" and "joint" under every noise model.
     """
 
     mode: str = "tomo"
     inv_shape: Tuple[int, ...] = (16, 16)
     background_slowness: float = 1.0
     prior_sigma_u: float = 0.5
-    # Observation noise: "fixed", "hierarchical" or "spike_slab"
-    # (hierarchical_noise=True means "hierarchical").
+    # Observation noise: "fixed", "hierarchical" (sigma * exp(log_sigma),
+    # log_sigma ~ N(0, sigma_hyper^2), one or per station) or "spike_slab"
+    # (per station, indicator z ~ Bernoulli(noise_p0) switches between
+    # sigma and sigma * exp(log_sigma), log_sigma ~ N(noise_slab_mu,
+    # sigma_hyper^2): a slab centred on genuine inflation, e^2 ~ 7.4x);
+    # hierarchical_noise=True means "hierarchical".
     sigma: float = 0.01
     noise_model: Optional[str] = None
     hierarchical_noise: bool = False

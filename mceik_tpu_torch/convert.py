@@ -4,7 +4,8 @@ Each function takes objects of the JAX package (``Params``, ``TomoData``,
 ``EventData``, ``RWMHyper``, ``AMHyper``, ``AMFullHyper``, ``MALAState``,
 ``SMCState``, ``HMCHyper``, ``PCNHyper``) whose leaves are array-likes,
 reads them as numpy arrays, and
-returns the port's dataclasses on ``device``. Attribute access only: this
+returns the port's dataclasses on ``device``; every ``Params`` leaf comes
+across, the noise leaves ``log_sigma`` and ``noise_z`` included. Attribute access only: this
 module imports neither ``jax`` nor ``mceik_tpu``. The parity tests use it
 so that both packages compute on the same state.
 """

@@ -1,5 +1,6 @@
-// K4: one full 3-D adjoint transport sweep cycle over a batch of fields,
-// for sm_90a.
+// K4 and K5: one full 3-D adjoint transport sweep cycle over a batch of
+// fields, for sm_90a. K4 stages the in-plane weights in shared memory; K5,
+// for cross-sections K4's planes cannot hold, reads them from global memory.
 //
 // Replaces the Pallas TPU kernel `_transport_axis0_kernel` /
 // `transport_axis0` (mceik_tpu/eikonal/pallas_transport.py:61, :132), which
@@ -35,12 +36,30 @@
 // lane packing, seam masks and `i >= 1` guard spelling are Mosaic
 // workarounds and have no counterpart here.
 //
+// K5 is the same kernel with kStageWeights = false, for the blocked
+// big-field route of the TPU kernel: `transport_solve_pallas_blocked`
+// (pallas_transport.py:216) through `_transport_block_pass` (:181) and
+// `_transport_block_cycle` (:164), which every gradient of a 128^3 field
+// takes (config 5). The TPU splits axis 0 into blocks with halo planes and
+// pinned rows because its VMEM holds 2 MB; here one CTA marches the whole
+// field, so the fixed point is the unblocked one, and the blocks, halos and
+// pins have no counterpart. Five planes at 128^2 are 320 KB, above the
+// 227 KB a block may use; K5 keeps three (base and lam double-buffered,
+// 192 KB at 128^2: one CTA of 1024 threads per SM, 16 nodes per thread) and
+// reads wp and wq through the read-only path at every Jacobi step, at the
+// plane's node at that in-plane offset (global o +- sp, o +- sq, not the
+// shared index m +- nq, m +- 1). Three planes cap the cross-section at
+// 232,448 / 12 = 19,370 nodes (139^2); a larger one needs a
+// thread-block-cluster design (distributed shared memory), later work. The
+// two routes share every operation, so they are bit-identical.
+//
 // What bounds it. Per plane visit the CTA loads g, the two axial
 // neighbours of lam and of w_ax, lam itself and two weight planes (seven
 // plane reads, one store) and crosses n_inner + 2 barriers; the Jacobi
-// step is ~12 flops per node. Like K1 it is bound by global-load latency
-// and barriers, and its axis-2 sweep (planes strided by nz floats) does not
-// coalesce. Speed is later work.
+// step is ~12 flops per node (K5 adds four weight loads per node and step
+// from L1/L2). Like K1 it is bound by global-load latency and barriers,
+// and its axis-2 sweep (planes strided by nz floats) does not coalesce.
+// Speed is later work.
 //
 // NaN and inf propagate as in the reference: a zero weight still multiplies
 // lam (0 * NaN = NaN), so a diverged field stays poisoned. Build with
@@ -55,8 +74,17 @@ namespace {
 __device__ __forceinline__ float pos(float w) { return w > 0.0f ? w : 0.0f; }
 __device__ __forceinline__ float neg(float w) { return w < 0.0f ? -w : 0.0f; }
 
+// An in-plane weight at shared index m (K4) or global offset o (K5).
+template <bool kStageWeights>
+__device__ __forceinline__ float weight(const float* staged, int m,
+                                        const float* __restrict__ global,
+                                        int64_t o) {
+  return kStageWeights ? staged[m] : __ldg(global + o);
+}
+
 // lam is read and written by the CTA (no __restrict__/read-only path: later
 // plane visits must see earlier stores of the same CTA).
+template <bool kStageWeights>
 __global__ void __launch_bounds__(1024)
 transport3d_cycle_kernel(float* lam, const float* __restrict__ G,
                          const float* __restrict__ W0,
@@ -78,7 +106,7 @@ transport3d_cycle_kernel(float* lam, const float* __restrict__ G,
   float* base = smem;
   float* buf_a = smem + max_plane;
   float* buf_b = smem + 2 * max_plane;
-  float* wp = smem + 3 * max_plane;
+  float* wp = smem + 3 * max_plane;  // K4 only
   float* wq = smem + 4 * max_plane;
   const int tid = threadIdx.x, nthr = blockDim.x;
 
@@ -117,17 +145,25 @@ transport3d_cycle_kernel(float* lam, const float* __restrict__ G,
           }
           base[m] = G[o] + axial;
           cur[m] = lam[o];
-          wp[m] = Wp[o];
-          wq[m] = Wq[o];
+          if (kStageWeights) {
+            wp[m] = Wp[o];
+            wq[m] = Wq[o];
+          }
         }
         __syncthreads();
         for (int it = 0; it < n_inner; ++it) {
           for (int m = tid; m < plane; m += nthr) {
             const int ip = m / nq, iq = m - ip * nq;
-            float acc = ip + 1 < np_ ? pos(wp[m + nq]) * cur[m + nq] : 0.0f;
-            acc = acc + (ip > 0 ? neg(wp[m - nq]) * cur[m - nq] : 0.0f);
-            acc = acc + (iq + 1 < nq ? pos(wq[m + 1]) * cur[m + 1] : 0.0f);
-            acc = acc + (iq > 0 ? neg(wq[m - 1]) * cur[m - 1] : 0.0f);
+            const int64_t o = off_i + ip * sp + iq * sq;
+            constexpr bool S = kStageWeights;
+            float acc = ip + 1 < np_
+                ? pos(weight<S>(wp, m + nq, Wp, o + sp)) * cur[m + nq] : 0.0f;
+            acc = acc + (ip > 0
+                ? neg(weight<S>(wp, m - nq, Wp, o - sp)) * cur[m - nq] : 0.0f);
+            acc = acc + (iq + 1 < nq
+                ? pos(weight<S>(wq, m + 1, Wq, o + sq)) * cur[m + 1] : 0.0f);
+            acc = acc + (iq > 0
+                ? neg(weight<S>(wq, m - 1, Wq, o - sq)) * cur[m - 1] : 0.0f);
             nxt[m] = base[m] + acc;
           }
           __syncthreads();
@@ -138,34 +174,55 @@ transport3d_cycle_kernel(float* lam, const float* __restrict__ G,
           lam[off_i + ip * sp + iq * sq] = cur[m];
         }
         // The next plane reads this one from global memory, and its loads
-        // overwrite base, cur and the weight planes.
+        // overwrite base, cur and (K4) the weight planes.
         __syncthreads();
       }
     }
   }
 }
 
+template <bool kStageWeights>
+int launch(float* lam, const float* G, const float* W0, const float* W1,
+           const float* W2, const uint8_t* done, int B, int n0, int n1,
+           int n2, int n_inner, int threads, int device, void* stream) {
+  int max_plane = n1 * n2;
+  if (n0 * n2 > max_plane) max_plane = n0 * n2;
+  if (n0 * n1 > max_plane) max_plane = n0 * n1;
+  const int n_planes = kStageWeights ? 5 : 3;
+  const size_t smem = n_planes * (size_t)max_plane * sizeof(float);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(transport3d_cycle_kernel<kStageWeights>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  transport3d_cycle_kernel<kStageWeights>
+      <<<B, threads, smem, (cudaStream_t)stream>>>(lam, G, W0, W1, W2, done,
+                                                   n0, n1, n2, n_inner);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry, loaded with ctypes. Launches on `stream` of `device`; returns the
-// CUDA error code of the set-up calls or of cudaGetLastError() after the
-// launch (0 = launched). Does not synchronise.
+// C entries, loaded with ctypes: K4 (five planes in shared memory) and K5
+// (three). Each launches on `stream` of `device` and returns the CUDA error
+// code of the set-up calls or of cudaGetLastError() after the launch
+// (0 = launched). Neither synchronises.
 extern "C" int transport3d_cycle(float* lam, const float* G, const float* W0,
                                  const float* W1, const float* W2,
                                  const uint8_t* done, int B, int n0, int n1,
                                  int n2, int n_inner, int threads, int device,
                                  void* stream) {
-  int max_plane = n1 * n2;
-  if (n0 * n2 > max_plane) max_plane = n0 * n2;
-  if (n0 * n1 > max_plane) max_plane = n0 * n1;
-  const size_t smem = 5 * (size_t)max_plane * sizeof(float);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(transport3d_cycle_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  transport3d_cycle_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      lam, G, W0, W1, W2, done, n0, n1, n2, n_inner);
-  return (int)cudaGetLastError();
+  return launch<true>(lam, G, W0, W1, W2, done, B, n0, n1, n2, n_inner,
+                      threads, device, stream);
+}
+
+extern "C" int transport3d_large_cycle(float* lam, const float* G,
+                                       const float* W0, const float* W1,
+                                       const float* W2, const uint8_t* done,
+                                       int B, int n0, int n1, int n2,
+                                       int n_inner, int threads, int device,
+                                       void* stream) {
+  return launch<false>(lam, G, W0, W1, W2, done, B, n0, n1, n2, n_inner,
+                       threads, device, stream);
 }

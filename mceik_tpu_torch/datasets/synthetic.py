@@ -235,5 +235,5 @@ def make_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
         return data, {"slowness": s_true, "hypo": hypo, "t0": t0}
     if dcfg.dataset in ("file", "csv"):
         raise NotImplementedError(
-            f"dataset {dcfg.dataset!r} is slice 5 of the port")
+            f"dataset {dcfg.dataset!r} is slice 6 of the port")
     raise ValueError(f"unknown dataset {dcfg.dataset!r}")

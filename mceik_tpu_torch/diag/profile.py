@@ -8,7 +8,18 @@ included), runs ``--warm`` warmup steps, times ``--steps`` steps with the
 host clock around a synchronised loop (with the kernels' launches per step
 and the mean of every per-chain info entry, e.g. NUTS's tree depth), then
 traces ``--steps`` more with ``torch.profiler``. Config 3's NUTS:
-``configs/c3_joint_events.json --warm 5 --steps 3``.
+``configs/c3_joint_events.json --warm 5 --steps 3``. Under spike-slab noise
+(config 5) the warmup is the annealed one of ``api.run`` and every step
+ends with the Gibbs scan over the station indicators.
+
+``--grad-chains 8,16`` first times one batched ``value_and_grad`` at each
+of those chain counts (chains started as the sampler starts them), with its
+K1 and transport launches (cycles per forward and per transport solve) and
+its peak device memory in GB (1e9 bytes), and from the last two counts the
+largest chain count whose gradient leaves 10 GB of the card's memory free
+(memory is affine in the chain count); ``--steps 0`` stops there. Config
+5: ``configs/c5_pod_nuts.json --grad-chains 8,16 --steps 0``, then its
+NUTS with ``sampler.n_chains=4 sampler.max_tree_depth=3 --warm 4 --steps 2``.
 
 For an SMC config (``configs/c4_smc.json``) a step is one stage of the
 ladder (``samplers.smc.stage``: the next beta, reweight and resample, the
@@ -84,11 +95,58 @@ def _traced(fn, path):
     }
 
 
+def _kernels():
+    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
+    return {"sweep3d_cycle": cuda_sweep.SWEEP3D,
+            "transport3d_cycle": cuda_transport.TRANSPORT3D,
+            "transport3d_large_cycle": cuda_transport.TRANSPORT3D_LARGE,
+            "sweep2d_cycle": cuda_sweep.SWEEP2D}
+
+
+def _profile_gradients(post, gen, chain_counts):
+    """One ``value_and_grad`` per chain count (after one untimed call):
+    ms, launches by kernel, peak memory; then the one-card chain count."""
+    from mceik_tpu_torch.model.posterior import value_and_grad
+
+    vag = value_and_grad(post.logpost)
+    kernels = _kernels()
+    rows = []
+    for n in chain_counts:
+        params = post.init_params(gen, n)
+        vag(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts0 = {k: v.launches for k, v in kernels.items()}
+        t0 = time.perf_counter()
+        lp, _ = vag(params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"n_chains": n, "ms_per_value_and_grad": ms,
+                     "launches": {k: v.launches - counts0[k]
+                                  for k, v in kernels.items()
+                                  if v.launches > counts0[k]},
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "logpost_finite": bool(torch.isfinite(lp).all())})
+        del params, lp
+        torch.cuda.empty_cache()
+    out = {"gradients": rows}
+    if len(rows) >= 2:
+        a, b = rows[-2], rows[-1]
+        per_chain = (b["peak_mem_gb"] - a["peak_mem_gb"]) / (
+            b["n_chains"] - a["n_chains"])
+        fixed = a["peak_mem_gb"] - per_chain * a["n_chains"]
+        total = torch.cuda.get_device_properties(0).total_memory / 1e9
+        out.update(gb_per_chain=per_chain, gb_fixed=fixed,
+                   device_total_gb=total,
+                   one_card_chains=int((total - 10.0 - fixed) // per_chain))
+    return out
+
+
 def _profile_mcmc(cfg, args, path):
     from mceik_tpu_torch.api import (_check_supported, _dispatch_sampler,
-                                     _uses_gradients, prepare_device)
+                                     _uses_gradients, prepare_device,
+                                     with_noise_gibbs)
     from mceik_tpu_torch.datasets import make_dataset
-    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
     from mceik_tpu_torch.io.metrics import MetricsLogger
     from mceik_tpu_torch.model.posterior import build_posterior
     from mceik_tpu_torch.samplers.base import run_mcmc
@@ -101,15 +159,20 @@ def _profile_mcmc(cfg, args, path):
     post = build_posterior(cfg.model, data, grid, cfg.eikonal,
                            differentiable=_uses_gradients(scfg))
     gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+    grads = {}
+    if args.grad_chains:
+        grads = _profile_gradients(post, gen, args.grad_chains)
+        if args.steps == 0:
+            return grads
     kernel, adapter, hyper, finalize_fn, states, _ = _dispatch_sampler(
         scfg, post, gen, MetricsLogger())
-    r = run_mcmc(kernel, adapter, states, hyper, gen, n_warmup=args.warm,
+    kernel, states, hyper, n_warm = with_noise_gibbs(
+        post, kernel, adapter, states, hyper, finalize_fn, gen, args.warm)
+    r = run_mcmc(kernel, adapter, states, hyper, gen, n_warmup=n_warm,
                  n_steps=0, finalize_fn=finalize_fn)
     states, hyper = r.states, r.hyper
 
-    kernels = {"sweep3d_cycle": cuda_sweep.SWEEP3D,
-               "transport3d_cycle": cuda_transport.TRANSPORT3D,
-               "sweep2d_cycle": cuda_sweep.SWEEP2D}
+    kernels = _kernels()
     counts0 = {k: v.launches for k, v in kernels.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -123,8 +186,8 @@ def _profile_mcmc(cfg, args, path):
     states = r.states
     summary = _traced(lambda: run_mcmc(kernel, None, states, hyper, gen,
                                        n_warmup=0, n_steps=args.steps), path)
-    return {"algorithm": scfg.algorithm, "n_chains": scfg.n_chains,
-            "steps": args.steps,
+    return {**grads, "algorithm": scfg.algorithm,
+            "n_chains": scfg.n_chains, "steps": args.steps,
             "chain_steps_per_s": args.steps * scfg.n_chains / wall,
             "ms_per_step": wall * 1e3 / args.steps,
             "launches_per_step": per_step, "info_mean": info, **summary}
@@ -172,6 +235,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trace", default=None,
                    help="path of the Chrome trace (default: a temp file)")
+    p.add_argument("--grad-chains", default="",
+                   type=lambda v: [int(x) for x in v.split(",") if x],
+                   help="chain counts at which to time one value_and_grad "
+                        "first, e.g. 8,16 (MCMC configs)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: torch sees no CUDA device")

@@ -1,1 +1,1 @@
-"""Particle resampling (one device; the collectives are slice 6)."""
+"""Particle resampling (one device; the collectives are slice 7)."""

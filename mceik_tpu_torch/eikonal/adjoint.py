@@ -19,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from mceik_tpu_torch.eikonal.adjoint_sweep import transport_solve_batched
+from mceik_tpu_torch.eikonal.adjoint_sweep import (field_chunks,
+                                                   transport_solve_batched)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.godunov import local_solve, neighbor_min
 from mceik_tpu_torch.eikonal.solve import EikonalConfig, seed_source
@@ -44,9 +45,10 @@ def _fixed_point_map(T: torch.Tensor, s_b: torch.Tensor, srcs: torch.Tensor,
 
 class _SolveDiff(torch.autograd.Function):
     """Forward: the batched solve (K1 on the card), or a given converged
-    batch. Backward: lambda from the transport solve (K4 on the card), then
-    one VJP of the pure local map at lambda; a field whose transport solve
-    diverged gets NaN."""
+    batch. Backward: lambda from the transport solve (K4 or K5 on the
+    card), then one VJP of the pure local map at lambda, in chunks of fields
+    (``adjoint_sweep.field_chunks``); a field whose transport solve diverged
+    gets NaN."""
 
     @staticmethod
     def forward(ctx, s_b, srcs, T_given, grid, config):
@@ -62,12 +64,19 @@ class _SolveDiff(torch.autograd.Function):
         grid, config = ctx.grid, ctx.config
         need_srcs = ctx.needs_input_grad[1]
         lam = transport_solve_batched(g, T, s_b, srcs, grid, config)
-        with torch.enable_grad():
-            s_ = s_b.detach().requires_grad_(True)
-            x_ = srcs.detach().requires_grad_(need_srcs)
-            F = _fixed_point_map(T, s_, x_, grid, config)
-            grads = torch.autograd.grad(F, [s_, x_] if need_srcs else [s_], lam)
-        return (grads[0], grads[1] if need_srcs else None, None, None, None)
+        grad_s = torch.empty_like(s_b)
+        grad_x = torch.empty_like(srcs) if need_srcs else None
+        for c in field_chunks(T.shape[0], T[0].numel()):
+            with torch.enable_grad():
+                s_ = s_b[c].detach().requires_grad_(True)
+                x_ = srcs[c].detach().requires_grad_(need_srcs)
+                F = _fixed_point_map(T[c], s_, x_, grid, config)
+                grads = torch.autograd.grad(
+                    F, [s_, x_] if need_srcs else [s_], lam[c])
+            grad_s[c] = grads[0]
+            if need_srcs:
+                grad_x[c] = grads[1]
+        return grad_s, grad_x, None, None, None
 
 
 def solve_eikonal_diff_batched(s_b: torch.Tensor, srcs: torch.Tensor,

@@ -35,6 +35,18 @@ from mceik_tpu_torch.grid import Grid
 # A cycle residual above this multiple of the first cycle's marks the
 # field diverged (reference: adjoint_sweep.DIVERGENCE_FACTOR).
 DIVERGENCE_FACTOR = 10.0
+# Field elements per chunk of the backward's elementwise work (64 MB of
+# fp32): the weights' JVPs hold ~48 field-sized temporaries per field and
+# the local map's VJP ~24, which for a whole batch of 128^3 fields would
+# take ~10 GB per chain (config 5); in chunks they take a few GB in all.
+CHUNK_ELEMS = 1 << 24
+
+
+def field_chunks(B: int, field_elems: int):
+    """Slices of a batch of ``B`` fields, ``CHUNK_ELEMS // field_elems``
+    fields (at least one) each."""
+    n = max(1, CHUNK_ELEMS // field_elems)
+    return [slice(i, min(i + n, B)) for i in range(0, B, n)]
 
 
 def transport_weights(T: torch.Tensor, s: torch.Tensor, frozen: torch.Tensor,
@@ -188,15 +200,21 @@ def transport_solve_batched(g: torch.Tensor, T: torch.Tensor, s_b: torch.Tensor,
 
     ``g``: cotangent fields ``(B,) + grid``; ``T``: the converged
     traveltimes; ``s_b``: per-field slowness; ``srcs``: ``(B, D)`` solve
-    origins, from which the frozen seed masks are re-derived. CUDA tensors
-    go to the kernel K4 and CPU tensors to the plain cycle, unless
-    ``config.use_pallas == "off"`` asks for the plain cycle on any device.
+    origins, from which the frozen seed masks are re-derived. The weights
+    are taken in chunks of fields (:func:`field_chunks`). CUDA tensors go to
+    the kernel (K4, or K5 where K4's planes do not fit) and CPU tensors to
+    the plain cycle, unless ``config.use_pallas == "off"`` asks for the
+    plain cycle on any device.
     """
     # K4's module imports this one for the plain cycle.
     from mceik_tpu_torch.eikonal import cuda_transport
 
-    _, frozen = seed_source(s_b, srcs, grid, config.seed_radius)
-    ws = transport_weights(T, s_b, frozen, grid.spacing)
+    ws = tuple(torch.empty_like(T) for _ in range(grid.ndim))
+    for c in field_chunks(T.shape[0], T[0].numel()):
+        _, frozen = seed_source(s_b[c], srcs[c], grid, config.seed_radius)
+        for w, w_c in zip(ws, transport_weights(T[c], s_b[c], frozen,
+                                                grid.spacing)):
+            w[c] = w_c
     cycle = (transport_cycle_plain if config.use_pallas == "off"
              else cuda_transport.transport_cycle)
     return transport_solve(g.contiguous(), ws, config.tol, config.max_iters,

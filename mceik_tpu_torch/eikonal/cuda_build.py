@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -49,13 +50,26 @@ def plane_smem(n_planes: int) -> Callable[[Tuple[int, ...]], int]:
     return smem
 
 
+def plane_limit(n_planes: int) -> str:
+    """The largest cross-section a kernel with ``n_planes`` fp32 plane
+    buffers in shared memory takes, as text for its error messages: three
+    planes (K1, K5) fit 19,370 nodes, 139^2 but not 140^2; five (K4) fit
+    11,622, 107^2."""
+    nodes = MAX_SMEM_BYTES // (4 * n_planes)
+    side = math.isqrt(nodes)
+    return (f"{n_planes} fp32 planes fit cross-sections of at most {nodes} "
+            f"nodes ({side}^2 but not {side + 1}^2); a larger one needs a "
+            "thread-block-cluster kernel, a later slice of the port")
+
+
 def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int],
-                 ndim: int = 3) -> torch.device:
+                 ndim: int = 3, limit: str = "") -> torch.device:
     """Validate a kernel's field operands before their pointers go to C:
     ``fields`` are ``(label, tensor)`` pairs that must all be contiguous
     fp32 CUDA tensors of one ``(B,) + grid`` shape with ``ndim`` grid axes
     on one device, and ``smem_bytes(grid)``, the shared memory one block
-    needs, must fit. Returns the device; raises ValueError."""
+    needs, must fit (``limit`` says what does). Returns the device; raises
+    ValueError."""
     ref = fields[0][1]
     dev = ref.device
     if ref.ndim != ndim + 1:
@@ -73,7 +87,8 @@ def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int]
     need = smem_bytes(grid)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"grid {grid}: {name} needs {need} bytes of shared "
-                         f"memory per block, more than {MAX_SMEM_BYTES}")
+                         f"memory per block, more than {MAX_SMEM_BYTES}"
+                         + (f": {limit}" if limit else ""))
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
     return dev
@@ -111,8 +126,20 @@ def launch_config(shape, dev: torch.device):
             torch.cuda.current_stream(dev).cuda_stream)
 
 
+_SOURCE_LOCKS = {}
+_SOURCE_LOCKS_GUARD = threading.Lock()
+
+
+def _source_lock(source: Path) -> threading.Lock:
+    """One lock per source, so that two entry points of one source build it
+    once."""
+    with _SOURCE_LOCKS_GUARD:
+        return _SOURCE_LOCKS.setdefault(source, threading.Lock())
+
+
 class NvccKernel:
-    """One kernel source, its C entry point once built, and its launch count.
+    """One C entry point of a kernel source, bound once built, and its
+    launch count.
 
     ``launches`` is a plain integer that the wrapper raises by one per kernel
     launch and nowhere else, so a run can show that it went through the
@@ -127,13 +154,12 @@ class NvccKernel:
         self.build_log = ""
         self.build_seconds = 0.0
         self._fn = None
-        self._lock = threading.Lock()
 
     def build(self):
         """Compile (once per source hash) and load; returns the bound C
-        entry point. Safe to call from several threads: two kernels build in
-        parallel, one kernel once."""
-        with self._lock:
+        entry point. Safe to call from several threads: two sources build in
+        parallel, one source once."""
+        with _source_lock(self.source):
             if self._fn is not None:
                 return self._fn
             t0 = time.perf_counter()

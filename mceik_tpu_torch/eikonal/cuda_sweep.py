@@ -29,7 +29,8 @@ import torch
 
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, NvccKernel,
                                                 check_fields, done_flags,
-                                                launch_config, plane_smem)
+                                                launch_config, plane_limit,
+                                                plane_smem)
 from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
 from mceik_tpu_torch.eikonal.solve import sweep_cycle_plain
 
@@ -52,7 +53,7 @@ class Sweep3dKernel(NvccKernel):
                  done: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One cycle on a copy of ``T``; returns the swept batch."""
         dev = check_fields("sweep3d", [("T", T), ("s", s), ("floor", floor)],
-                           plane_smem(N_PLANES))
+                           plane_smem(N_PLANES), limit=plane_limit(N_PLANES))
         B, n0, n1, n2 = T.shape
         done = done_flags(done, B, dev)
         if len(spacing) != 3 or n_inner < 0:

@@ -5,7 +5,11 @@ the slowness is carried through: every chain's tables go into ONE batched
 solve of ``chains x table points`` fields. With ``differentiable=True`` the
 solve is the implicit-adjoint one (``eikonal/adjoint.py``), so gradients
 reach the slowness; interpolation gradients (to the tables and to event
-positions) flow through ``grid.sample_linear``'s autograd.
+positions) flow through ``grid.sample_linear``'s autograd. The reference
+chooses its Pallas route by field size here (whole-field VMEM kernels up to
+2 MB, axis-0 blocks above, e.g. at 128^3); the port's kernels march whole
+fields at every size they take (K1 and K4/K5, up to 139^2 cross-sections),
+so there is no choice to make.
 """
 
 from __future__ import annotations

@@ -75,9 +75,10 @@ def map_estimate(post, n_steps: int = 150):
 
 def gauss_newton_covariance(post, params) -> torch.Tensor:
     """Gauss-Newton posterior covariance at ``params`` (one chain), over the
-    full flattened dimension d, with the model's noise ``cfg.sigma``:
-    frozen coordinates get a unit diagonal and zero cross terms, as MALA's
-    Cholesky expects."""
+    full flattened dimension d, with the model's base noise ``cfg.sigma``
+    under every noise model (as the reference: a preconditioner needs no
+    more; the noise leaves get their prior variance): frozen coordinates
+    get a unit diagonal and zero cross terms, as MALA's Cholesky expects."""
     scales = _ravel(post.prior_scales)
     active = scales > 0
     t_pred, J = post.jacobian(params)

@@ -1,12 +1,20 @@
 """Posterior builder: prior + Gaussian traveltime likelihood.
 
-Counterpart of ``mceik_tpu/model/posterior.py`` with fixed noise, in two
-modes: ``tomo`` (slowness only, known sources; configs 1, 2 and 4) and
-``joint`` (slowness, hypocentres and origin times; config 3), the latter
-with sampled ``t0`` or with ``t0`` marginalized exactly. Every function
-takes parameters with a leading chain axis (``u``: ``(C,) + inv_shape``,
-``hypo_raw``: ``(C, n_ev, D)``, ``t0``: ``(C, n_ev)``) and returns one value
-per chain; one ``logpost`` call makes one batched eikonal solve of
+Counterpart of ``mceik_tpu/model/posterior.py`` in two modes: ``tomo``
+(slowness only, known sources; configs 1, 2 and 4) and ``joint``
+(slowness, hypocentres and origin times; configs 3 and 5), the latter with
+sampled ``t0`` or with ``t0`` marginalized exactly. Three noise models:
+``fixed`` (``cfg.sigma``), ``hierarchical`` (``sigma * exp(log_sigma)``,
+one ``log_sigma`` or one per station, under an ``N(0, sigma_hyper^2)``
+hyperprior) and ``spike_slab`` (per station, an indicator ``z`` switches
+the noise between ``sigma`` and ``sigma * exp(log_sigma)``, the slab
+``N(noise_slab_mu, sigma_hyper^2)`` doubling as the pseudo-prior of
+inactive stations; the indicators move only through :func:`noise_gibbs`'s
+exact Gibbs scan). Every function takes parameters with a leading chain
+axis (``u``: ``(C,) + inv_shape``, ``hypo_raw``: ``(C, n_ev, D)``, ``t0``:
+``(C, n_ev)``, ``log_sigma``: ``(C,)`` or ``(C, n_sta)``, ``noise_z``:
+``(C, n_sta)``; stations are the receivers in tomo mode) and returns one
+value per chain; one ``logpost`` call makes one batched eikonal solve of
 ``C x n_src`` (tomo) or ``C x n_sta`` (joint, tables solved from the
 stations) fields. Built with ``differentiable=True`` the solve is the
 implicit-adjoint one, and :func:`value_and_grad` gives every chain's
@@ -17,6 +25,7 @@ fields. Hypocentre gradients come from the table interpolation alone.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -60,10 +69,15 @@ class PosteriorModel:
     # Params of ONE chain (leading axis 1) -> (t_pred (n_obs,), J (n_obs, d))
     # with J = d t_pred / d params, raveled. None unless differentiable.
     jacobian: Optional[Callable[[Params], Tuple[torch.Tensor, torch.Tensor]]] = None
+    # Spike-slab noise: the exact systematic-scan Gibbs sweep over the
+    # station indicators, (params, uniforms (C, n_sta), fresh normals
+    # (C, n_sta), beta=1.0) -> (params, log_prior, log_lik). None unless
+    # noise_model="spike_slab".
+    noise_gibbs: Optional[Callable] = None
 
 
 def _per_chain_sum(x: torch.Tensor) -> torch.Tensor:
-    return x.flatten(1).sum(1)
+    return x.reshape(x.shape[0], -1).sum(1)
 
 
 def _gaussian_loglik(r, sigma, mask):
@@ -98,12 +112,10 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
     implicit adjoint, for the gradient samplers and the Laplace fit."""
     if cfg.mode not in ("tomo", "joint"):
         raise NotImplementedError(
-            f"model mode {cfg.mode!r}: locate mode is slice 5 of the port")
+            f"model mode {cfg.mode!r}: locate mode is slice 6 of the port")
     noise_model = cfg.resolved_noise_model()
-    if noise_model != "fixed":
-        raise NotImplementedError(
-            f"noise_model {noise_model!r}: hierarchical and spike-slab noise "
-            "are slice 5 of the port")
+    if noise_model not in ("fixed", "hierarchical", "spike_slab"):
+        raise ValueError(f"unknown noise_model {noise_model!r}")
     want = TomoData if cfg.mode == "tomo" else EventData
     if not isinstance(data, want):
         raise TypeError(f"{cfg.mode} mode needs {want.__name__}, got "
@@ -119,11 +131,36 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
     sample_t0 = joint and not cfg.marginalize_t0
     if joint:
         n_ev, n_sta = data.t_obs.shape
+    else:
+        n_sta = data.t_obs.shape[1]          # the receivers
     D = grid.ndim
+    hier = noise_model == "hierarchical"
+    slab = noise_model == "spike_slab"
+    # Shape of one chain's log_sigma (None: no noise leaves).
+    ls_shape = None
+    if slab or (hier and cfg.per_station_noise):
+        ls_shape = (n_sta,)
+    elif hier:
+        ls_shape = ()
 
     def randn(gen, shape):
         return torch.randn(shape, generator=gen, dtype=torch.float32,
                            device=device)
+
+    def slab_sigma(z, ls):
+        """Spike-slab noise per chain and station, ``(C, 1, n_sta)``."""
+        return sigma * torch.exp(z * ls)[:, None, :]
+
+    def sigma_of(params: Params) -> torch.Tensor:
+        """The noise, broadcastable against residuals ``(C, n_a, n_sta)``:
+        the base sigma, times ``exp(log_sigma)`` (hierarchical) or
+        ``exp(noise_z * log_sigma)`` per station (spike-slab)."""
+        if hier:
+            ls = params.log_sigma
+            return sigma * torch.exp(ls.reshape(ls.shape[0], 1, -1))
+        if slab:
+            return slab_sigma(params.noise_z, params.log_sigma)
+        return sigma
 
     def log_prior(params: Params) -> torch.Tensor:
         lp = -0.5 * _per_chain_sum((params.u / cfg.prior_sigma_u) ** 2)
@@ -131,6 +168,16 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
             lp = lp + box_logjac(params.hypo_raw)
         if params.t0 is not None:
             lp = lp - 0.5 * _per_chain_sum((params.t0 / cfg.prior_sigma_t0) ** 2)
+        if hier:
+            lp = lp - 0.5 * _per_chain_sum((params.log_sigma / cfg.sigma_hyper) ** 2)
+        elif slab:
+            z = params.noise_z
+            lp = lp + _per_chain_sum(z * math.log(cfg.noise_p0)
+                                     + (1.0 - z) * math.log1p(-cfg.noise_p0))
+            # The slab doubles as the pseudo-prior of inactive stations, so
+            # one Gaussian term covers all of them.
+            lp = lp - 0.5 * _per_chain_sum(
+                ((params.log_sigma - cfg.noise_slab_mu) / cfg.sigma_hyper) ** 2)
         return lp
 
     def slowness_of(params: Params) -> torch.Tensor:
@@ -149,43 +196,112 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
                                device=device))
         return predict_events(tables, hypo, t0, grid)
 
-    def log_lik(params: Params) -> torch.Tensor:
+    def residuals(params: Params):
+        """``(r, mask)``: residuals ``(C, n_a, n_sta)`` from one predict,
+        and the mask (or None)."""
         r = data.t_obs - predict(params)
         mask = data.mask
-        if mask is not None:
-            mask = mask.expand_as(r)
-        sig = sigma.expand_as(r)
+        return r, (mask.expand_as(r) if mask is not None else None)
+
+    def lik_term(r, mask, sig):
+        sig = sig.expand_as(r)
         if joint and cfg.marginalize_t0:
             return _marginalized_t0_loglik(r, sig, mask)
         return _gaussian_loglik(r, sig, mask)
 
+    def log_lik(params: Params) -> torch.Tensor:
+        r, mask = residuals(params)
+        return lik_term(r, mask, sigma_of(params))
+
     def logpost(params: Params) -> torch.Tensor:
         return log_prior(params) + log_lik(params)
+
+    def init_noise(gen, n_chains: int, jitter: float):
+        """``(log_sigma, noise_z)`` chain starts. Spike-slab chains start
+        all-active (``z = 1``): with every station down-weighted alike the
+        field converges under balanced weights and clean stations then flip
+        off one by one, where an all-clean start lets a transiently misfit
+        clean station flip on and lose the pull that would fit it (the
+        reference's observation)."""
+        if ls_shape is None:
+            return None, None
+        eps = randn(gen, (n_chains,) + ls_shape)
+        if hier:
+            return jitter * 0.1 * eps, None
+        ls = cfg.noise_slab_mu + jitter * 0.1 * cfg.sigma_hyper * eps
+        return ls, torch.ones((n_chains, n_sta), dtype=torch.float32,
+                              device=device)
 
     def init_params(gen: torch.Generator, n_chains: int,
                     jitter: float = 1.0) -> Params:
         """Chain starts near the prior's centre, drawn in the order u,
-        hypo_raw, t0."""
+        hypo_raw, t0, log_sigma."""
         u = jitter * 0.1 * cfg.prior_sigma_u * randn(gen, (n_chains,) + inv_shape)
-        if not joint:
-            return Params(u=u)
-        hypo_raw = jitter * 0.5 * randn(gen, (n_chains, n_ev, D))
-        t0 = (jitter * 0.1 * cfg.prior_sigma_t0 * randn(gen, (n_chains, n_ev))
-              if sample_t0 else None)
-        return Params(u=u, hypo_raw=hypo_raw, t0=t0)
+        hypo_raw = t0 = None
+        if joint:
+            hypo_raw = jitter * 0.5 * randn(gen, (n_chains, n_ev, D))
+            t0 = (jitter * 0.1 * cfg.prior_sigma_t0
+                  * randn(gen, (n_chains, n_ev)) if sample_t0 else None)
+        ls, z = init_noise(gen, n_chains, jitter)
+        return Params(u=u, hypo_raw=hypo_raw, t0=t0, log_sigma=ls, noise_z=z)
 
     def sample_prior(gen: torch.Generator, n: int) -> Params:
         """``n`` exact draws from the prior: ``u ~ N(0, prior_sigma_u^2 I)``,
         ``hypo_raw`` standard logistic (the uniform-in-box prior pushed
-        through the inverse sigmoid), ``t0 ~ N(0, prior_sigma_t0^2)``."""
+        through the inverse sigmoid), ``t0 ~ N(0, prior_sigma_t0^2)``,
+        ``log_sigma ~ N(mu, sigma_hyper^2)`` (mu = 0, or ``noise_slab_mu``
+        under spike-slab) and ``noise_z ~ Bernoulli(noise_p0)``."""
         u = cfg.prior_sigma_u * randn(gen, (n,) + inv_shape)
-        if not joint:
-            return Params(u=u)
-        p = torch.rand((n, n_ev, D), generator=gen, dtype=torch.float32,
-                       device=device).clamp(1e-7, 1.0 - 1e-7)
-        hypo_raw = torch.log(p) - torch.log1p(-p)
-        t0 = cfg.prior_sigma_t0 * randn(gen, (n, n_ev)) if sample_t0 else None
-        return Params(u=u, hypo_raw=hypo_raw, t0=t0)
+        hypo_raw = t0 = ls = z = None
+        if joint:
+            p = torch.rand((n, n_ev, D), generator=gen, dtype=torch.float32,
+                           device=device).clamp(1e-7, 1.0 - 1e-7)
+            hypo_raw = torch.log(p) - torch.log1p(-p)
+            t0 = (cfg.prior_sigma_t0 * randn(gen, (n, n_ev)) if sample_t0
+                  else None)
+        if ls_shape is not None:
+            mu = cfg.noise_slab_mu if slab else 0.0
+            ls = mu + cfg.sigma_hyper * randn(gen, (n,) + ls_shape)
+        if slab:
+            z = (torch.rand((n, n_sta), generator=gen, dtype=torch.float32,
+                            device=device) < cfg.noise_p0).to(torch.float32)
+        return Params(u=u, hypo_raw=hypo_raw, t0=t0, log_sigma=ls, noise_z=z)
+
+    def noise_gibbs(params: Params, uniforms: torch.Tensor,
+                    fresh: torch.Tensor, beta: float = 1.0):
+        """Systematic-scan Gibbs sweep over the station indicators of every
+        chain, then a pseudo-prior refresh of the inactive slab values.
+
+        Station ``j`` in turn takes ``z_j = 1`` iff ``uniforms[:, j] <
+        sigmoid(log_odds0 + beta * (ll(z_j=1) - ll(z_j=0)))``, the other
+        indicators at their current values: an exact conditional draw,
+        ``beta`` tempering the likelihood ratio (annealed warmup, SMC). The
+        residuals come from ONE predict and serve every toggle (the
+        indicators never enter the eikonal solve); with t0 marginalized the
+        stations couple, so each toggle recomputes the whole (cheap)
+        reduction. Inactive stations' ``log_sigma`` is redrawn from the slab,
+        its exact full conditional, as ``noise_slab_mu + sigma_hyper *
+        fresh``. Returns ``(params, log_prior, log_lik)`` at the result."""
+        with torch.no_grad():
+            r, mask = residuals(params)
+            ls = params.log_sigma
+            z = params.noise_z.clone()
+
+            def ll_z(zz):
+                return lik_term(r, mask, slab_sigma(zz, ls))
+
+            for j in range(n_sta):
+                z_on, z_off = z.clone(), z.clone()
+                z_on[:, j] = 1.0
+                z_off[:, j] = 0.0
+                logit = log_odds0 + beta * (ll_z(z_on) - ll_z(z_off))
+                z[:, j] = (uniforms[:, j] < torch.sigmoid(logit)).to(z.dtype)
+            ls_new = torch.where(z > 0, ls,
+                                 cfg.noise_slab_mu + cfg.sigma_hyper * fresh)
+            new = dataclasses.replace(params, noise_z=z, log_sigma=ls_new)
+            return new, log_prior(new), lik_term(r, mask, sigma_of(new))
+
+    log_odds0 = math.log(cfg.noise_p0) - math.log1p(-cfg.noise_p0)
 
     def jacobian(params: Params):
         """Every row of ``d t_pred / d params`` from ONE forward solve and
@@ -235,34 +351,59 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
             grads = torch.autograd.grad(t_rows.sum(), wrt)
         J_u = grads[0].reshape(n_obs, -1)
         t_rows = t_rows.detach()
-        if not joint:
-            return t_rows, J_u
-        rows = torch.arange(n_obs, device=device)
-        J_h = torch.zeros((n_obs, n_ev, D), dtype=torch.float32, device=device)
-        J_h[rows, pt] = grads[1]
-        blocks = [J_u, J_h.reshape(n_obs, -1)]
-        if params.t0 is not None:
-            t_rows = t_rows + params.t0[0].detach()[pt]
-            J_t = torch.zeros((n_obs, n_ev), dtype=torch.float32, device=device)
-            J_t[rows, pt] = 1.0
-            blocks.append(J_t)
+        blocks = [J_u]
+        if joint:
+            rows = torch.arange(n_obs, device=device)
+            J_h = torch.zeros((n_obs, n_ev, D), dtype=torch.float32,
+                              device=device)
+            J_h[rows, pt] = grads[1]
+            blocks.append(J_h.reshape(n_obs, -1))
+            if params.t0 is not None:
+                t_rows = t_rows + params.t0[0].detach()[pt]
+                J_t = torch.zeros((n_obs, n_ev), dtype=torch.float32,
+                                  device=device)
+                J_t[rows, pt] = 1.0
+                blocks.append(J_t)
+        # The noise leaves do not enter the prediction: zero columns.
+        n_noise = sum(int(x[0].numel()) for x in (params.log_sigma,
+                                                  params.noise_z)
+                      if x is not None)
+        if n_noise:
+            blocks.append(torch.zeros((n_obs, n_noise), dtype=torch.float32,
+                                      device=device))
         return t_rows, torch.cat(blocks, dim=1)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
 
-    prior_scales = Params(u=full(inv_shape, cfg.prior_sigma_u))
-    if joint:
-        prior_scales = Params(
-            u=prior_scales.u, hypo_raw=full((n_ev, D), 1.0),
-            t0=full((n_ev,), cfg.prior_sigma_t0) if sample_t0 else None)
+    # The indicators' scale 0 freezes them for every continuous kernel;
+    # they move only through noise_gibbs.
+    prior_scales = Params(
+        u=full(inv_shape, cfg.prior_sigma_u),
+        hypo_raw=full((n_ev, D), 1.0) if joint else None,
+        t0=full((n_ev,), cfg.prior_sigma_t0) if sample_t0 else None,
+        log_sigma=(full(ls_shape, cfg.sigma_hyper) if ls_shape is not None
+                   else None),
+        noise_z=full((n_sta,), 0.0) if slab else None)
     n_dim = sum(int(x.numel()) for x in tree_leaves(prior_scales))
 
     return PosteriorModel(
         logpost=logpost, init_params=init_params, slowness_of=slowness_of,
         predict=predict, grid=grid, cfg=cfg, n_dim=n_dim,
         prior_scales=prior_scales, log_prior=log_prior, log_lik=log_lik,
-        sample_prior=sample_prior, jacobian=jacobian if differentiable else None)
+        sample_prior=sample_prior, jacobian=jacobian if differentiable else None,
+        noise_gibbs=noise_gibbs if slab else None)
+
+
+def noise_gibbs_draws(gen: torch.Generator, params: Params):
+    """The draws of one ``noise_gibbs`` scan: a uniform per chain and
+    station, and a standard normal per chain and station for the slab
+    refresh."""
+    z = params.noise_z
+    return (torch.rand(z.shape, generator=gen, dtype=torch.float32,
+                       device=z.device),
+            torch.randn(z.shape, generator=gen, dtype=torch.float32,
+                        device=z.device))
 
 
 def value_and_grad(logpost_fn: Callable[[Params], torch.Tensor]):

@@ -6,16 +6,18 @@ adaptive ladder (each increment chosen by bisection so that the incremental
 weights keep the ESS at ``ess_threshold * N``); each stage reweights,
 resamples systematically and rejuvenates with K random-walk Metropolis steps
 targeting ``log_prior + beta * log_lik``, whose shared proposal scale follows
-the acceptance pooled over all particles. One mutation step is one batched
-log-likelihood over the whole population: at config 4, 10,000 particles x 8
-sources = 80,000 fields in one solve. The log-evidence estimate
+the acceptance pooled over all particles. Under spike-slab noise each
+mutation step is followed by the posterior's Gibbs scan over the station
+indicators, its odds tempered by the same beta. One mutation step is one
+batched log-likelihood over the whole population: at config 4, 10,000
+particles x 8 sources = 80,000 fields in one solve. The log-evidence estimate
 ``log Z = sum_t logmeanexp(incremental log-weights)`` comes for free.
 
 :func:`mutate` and :func:`reweight_resample` take their random draws as
 tensors, as the MCMC kernels do, so a test can replay JAX's draws. As in the
 reference, beta and its increments enter the device arithmetic in fp32.
-Sharding the population (a ``mesh``) is slice 6 of the port; checkpoints and
-resume are slice 5.
+Sharding the population (a ``mesh``) is slice 7 of the port; checkpoints and
+resume are slice 6.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from mceik_tpu_torch.dist.resample import (ess_from_log_weights, resample_tree,
                                            systematic_indices)
+from mceik_tpu_torch.model.posterior import noise_gibbs_draws
 from mceik_tpu_torch.utils import tree_map, tree_random_normal, tree_where
 
 
@@ -67,19 +70,25 @@ def init_particles(posterior, gen: torch.Generator, n_particles: int,
 
 def mutate(state: SMCState, beta: float, scales: Any, log_prior_fn: Callable,
            log_lik_fn: Callable, normals: Sequence[Any],
-           uniforms: torch.Tensor,
-           target_accept: float = 0.234) -> Tuple[SMCState, torch.Tensor]:
+           uniforms: torch.Tensor, target_accept: float = 0.234,
+           gibbs_fn: Optional[Callable] = None,
+           gibbs_draws: Sequence[Tuple[torch.Tensor, torch.Tensor]] = ()
+           ) -> Tuple[SMCState, torch.Tensor]:
     """K tempered RWM steps over all particles, K = ``len(normals)``.
 
     ``normals``: K trees like the params (one standard normal per particle
-    and coordinate); ``uniforms``: ``(K, N)``. Between steps the shared
-    log-step moves by ``0.3 * (pooled accept prob - target)``. Returns the
-    new state and the mean pooled acceptance over the K steps."""
+    and coordinate); ``uniforms``: ``(K, N)``. ``gibbs_fn`` (the
+    posterior's ``noise_gibbs``) runs after each step with the step's
+    ``gibbs_draws`` pair (uniforms and normals, ``(N, n_sta)`` each) and
+    the stage's beta, so indicator moves mix inside SMC too. Between steps
+    the shared log-step moves by ``0.3 * (pooled accept prob - target)``.
+    Returns the new state and the mean pooled acceptance over the K
+    steps."""
     b = _f32(beta, state.log_lik.device)
     params, lp_prior, lp_lik, log_step = (state.params, state.log_prior,
                                           state.log_lik, state.log_step)
     pooled_all = []
-    for normal, uniform in zip(normals, uniforms):
+    for k, (normal, uniform) in enumerate(zip(normals, uniforms)):
         step = torch.exp(log_step)
         prop = tree_map(lambda x, e, s: x + step * s * e, params, normal,
                         scales)
@@ -91,6 +100,8 @@ def mutate(state: SMCState, beta: float, scales: Any, log_prior_fn: Callable,
         params = tree_where(accept, prop, params)
         lp_prior = torch.where(accept, prop_prior, lp_prior)
         lp_lik = torch.where(accept, prop_lik, lp_lik)
+        if gibbs_fn is not None:
+            params, lp_prior, lp_lik = gibbs_fn(params, *gibbs_draws[k], b)
         pooled = accept_prob.mean()
         log_step = log_step + 0.3 * (pooled - target_accept)
         pooled_all.append(pooled)
@@ -157,9 +168,14 @@ def stage(posterior, state: SMCState, beta: float, gen: torch.Generator,
                for _ in range(n_mutation_steps)]
     uniforms = torch.rand((n_mutation_steps, n), generator=gen,
                           dtype=torch.float32, device=dev)
+    gibbs = getattr(posterior, "noise_gibbs", None)
+    gibbs_draws = ()
+    if gibbs is not None:
+        gibbs_draws = [noise_gibbs_draws(gen, state.params)
+                       for _ in range(n_mutation_steps)]
     state, acc = mutate(state, beta_new, posterior.prior_scales,
                         posterior.log_prior, posterior.log_lik, normals,
-                        uniforms)
+                        uniforms, gibbs_fn=gibbs, gibbs_draws=gibbs_draws)
     return state, beta_new, ess, float(log_inc), float(acc)
 
 
@@ -174,9 +190,9 @@ def run_smc(posterior, gen: torch.Generator, n_particles: int,
     device)."""
     if mesh is not None:
         raise NotImplementedError("sharding SMC particles over a mesh is "
-                                  "slice 6 of the port")
+                                  "slice 7 of the port")
     if checkpoint_path or resume:
-        raise NotImplementedError("SMC checkpoints and resume are slice 5 "
+        raise NotImplementedError("SMC checkpoints and resume are slice 6 "
                                   "of the port")
     state = init_particles(posterior, gen, n_particles, step_size)
     betas, ess_hist, acc_hist, seconds = [0.0], [float(n_particles)], [], []

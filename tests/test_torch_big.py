@@ -1,0 +1,167 @@
+"""The port's routes for big fields (config 5's 128^3) on the CPU.
+
+On the TPU a field above 2 MB (``MAX_VMEM_FIELD_BYTES``) takes the blocked
+routes: ``sweep_solve_pallas_blocked`` (axis-0 blocks of the forward sweep,
+halo planes, pinned floors) and ``transport_solve_pallas_blocked`` (the
+same for the adjoint transport). The port marches whole fields (K1 and the
+transport kernel K5 on the card), so its fixed points are the unblocked
+ones: here the port's plain solves are held against JAX's blocked solves in
+interpret mode with forced multi-block partitioning, at the reference's
+own bars. Then the choice between K4 and K5 by shape, the shared-memory
+limits in the kernels' messages, and the launch shape at 128^3, none of
+which needs a card. Inputs are made with numpy from seeds."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mceik_tpu.eikonal.adjoint_sweep import transport_weights as j_weights
+from mceik_tpu.eikonal.pallas_sweep import sweep_solve_pallas_blocked
+from mceik_tpu.eikonal.pallas_transport import transport_solve_pallas_blocked
+from mceik_tpu.eikonal.solve import EikonalConfig as JEikonalConfig
+from mceik_tpu.eikonal.solve import seed_source as j_seed_source
+from mceik_tpu.eikonal.solve import solve_eikonal as j_solve_eikonal
+from mceik_tpu.grid import Grid as JGrid
+
+from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
+from mceik_tpu_torch.eikonal.adjoint_sweep import transport_solve
+from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
+from mceik_tpu_torch.eikonal.cuda_build import (MAX_SMEM_BYTES, launch_threads,
+                                                plane_limit, plane_smem)
+from mceik_tpu_torch.eikonal.solve import EikonalConfig
+from mceik_tpu_torch.grid import Grid
+
+
+def _smooth_slowness(shape, seed, amp=0.3):
+    """A smooth positive field: coarse normals, trilinear-upsampled."""
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.standard_normal((1, 1, 6, 6, 6)).astype(np.float32))
+    up = torch.nn.functional.interpolate(u, size=shape, mode="trilinear",
+                                         align_corners=False)[0, 0]
+    return torch.exp(amp * up).numpy()
+
+
+def test_plain_solve_matches_jax_blocked_sweep():
+    """The port's whole-field solve against JAX's blocked forward route
+    (4 axis-0 blocks of (16, 13, 11), halos and pinned floors, interpret
+    mode) at the reference's bar for that route, atol 2e-3
+    (tests/test_pallas_sweep.py::test_blocked_matches_reference)."""
+    shape = (16, 13, 11)
+    s = _smooth_slowness(shape, 7)
+    src = np.asarray([3.0, 6.0, 5.0], np.float32)
+    jgrid = JGrid(shape=shape, spacing=(1.0, 1.0, 1.0))
+    T0, frozen = j_seed_source(jnp.asarray(s), jnp.asarray(src), jgrid, 3.0)
+    T_blk = np.asarray(sweep_solve_pallas_blocked(
+        T0, frozen, jnp.asarray(s), jgrid.spacing, tol=1e-6, max_cycles=100,
+        interpret=True, n_blocks=4))
+    T = solve_eikonal_batched(torch.from_numpy(s)[None], torch.from_numpy(src)[None],
+                              Grid(shape, (1.0, 1.0, 1.0)),
+                              EikonalConfig(tol=1e-6, max_iters=100))
+    np.testing.assert_allclose(T[0].numpy(), T_blk, atol=2e-3)
+
+
+def test_plain_transport_matches_jax_blocked_transport():
+    """The port's whole-field transport solve against JAX's blocked route
+    (4 axis-0 blocks of (12, 10, 8), halo planes injected and pinned,
+    interpret mode) on the same weights and cotangent, at the reference's
+    bar atol 1e-5 (tests/test_adjoint_sweep.py::
+    test_blocked_transport_matches_pure)."""
+    shape = (12, 10, 8)
+    rng = np.random.default_rng(2)
+    s = (1.0 + 0.3 * rng.uniform(size=shape)).astype(np.float32)
+    src = jnp.asarray([3.0, 5.0, 4.0], jnp.float32)
+    jgrid = JGrid(shape=shape, spacing=(1.0, 1.0, 1.0))
+    T = j_solve_eikonal(jnp.asarray(s), src, jgrid,
+                        JEikonalConfig(method="sweep", tol=1e-6, max_iters=100))
+    _, frozen = j_seed_source(jnp.asarray(s), src, jgrid, 3.0)
+    ws = j_weights(T, jnp.asarray(s), frozen, jgrid.spacing)
+    g = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    lam_blk = np.asarray(transport_solve_pallas_blocked(
+        jnp.asarray(g), ws, tol=1e-7, max_cycles=60, interpret=True,
+        n_blocks=4))
+    lam = transport_solve(torch.from_numpy(g)[None],
+                          [torch.from_numpy(np.array(w))[None] for w in ws],
+                          tol=1e-7, max_cycles=60, n_inner=2)
+    assert np.isfinite(lam_blk).all()
+    np.testing.assert_allclose(lam[0].numpy(), lam_blk, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid,kernel", [
+    ((64, 64, 64), "TRANSPORT3D"),            # config 2
+    ((48, 48, 32), "TRANSPORT3D"),            # config 3
+    ((107, 107, 8), "TRANSPORT3D"),           # K4's largest square plane
+    ((108, 108, 8), "TRANSPORT3D_LARGE"),
+    ((128, 128, 128), "TRANSPORT3D_LARGE"),   # config 5
+    ((8, 139, 139), "TRANSPORT3D_LARGE"),     # K5's largest square plane
+])
+def test_transport_kernel_choice_by_shape(grid, kernel):
+    """K4 where its five shared-memory planes fit, else K5 with three; a
+    pure function of the shape."""
+    assert cuda_transport.transport_kernel_for(grid) is \
+        getattr(cuda_transport, kernel)
+
+
+def test_plane_limits_and_128_cube_launch():
+    """The limits the messages state (three planes: 19,370 nodes, 139^2;
+    five: 11,622, 107^2), a grid no kernel takes, and config 5's launch:
+    one CTA of 1024 threads per 128^3 field, 192 KB of shared memory for K1
+    and K5 (K4 would need 320 KB)."""
+    assert plane_limit(3).startswith("3 fp32 planes fit cross-sections of "
+                                     "at most 19370 nodes (139^2 but not "
+                                     "140^2)")
+    assert "11622 nodes (107^2 but not 108^2)" in plane_limit(5)
+    c5 = (128, 128, 128)
+    assert plane_smem(3)(c5) == 196608 <= MAX_SMEM_BYTES
+    assert plane_smem(5)(c5) == 327680 > MAX_SMEM_BYTES
+    assert launch_threads((96,) + c5) == 1024
+    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
+        cuda_transport.transport_kernel_for((140, 140, 8))
+    # The wrappers check shared memory before the device, so the message
+    # shows on CPU tensors too.
+    big = torch.zeros((1, 8, 140, 140))
+    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
+        cuda_sweep.SWEEP3D(big, big, big, (1.0, 1.0, 1.0), 2)
+    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
+        cuda_transport.TRANSPORT3D_LARGE(big, big, (big, big, big), 2)
+    mid = torch.zeros((1, 8, 120, 120))
+    with pytest.raises(ValueError, match="107\\^2 but not 108\\^2"):
+        cuda_transport.TRANSPORT3D(mid, mid, (mid, mid, mid), 2)
+    # CPU tensors take the plain cycle whatever the shape.
+    g = torch.zeros((1, 8, 140, 140))
+    out = cuda_transport.transport_cycle(g, g, (g, g, g), 2)
+    assert torch.equal(out, g)
+
+
+def test_backward_in_chunks_of_fields_equals_whole_batch(monkeypatch):
+    """The backward takes the transport weights and the local map's VJP in
+    chunks of fields (what keeps a 128^3 gradient's temporaries to a few
+    GB): with chunks of 2 fields, then of 1, the slowness and source
+    gradients of a 5-field batch equal the one-chunk ones bit for bit."""
+    from mceik_tpu_torch.eikonal import adjoint_sweep
+    from mceik_tpu_torch.eikonal.adjoint import solve_eikonal_diff_batched
+
+    shape = (10, 9, 8)
+    n = int(np.prod(shape))
+    assert adjoint_sweep.field_chunks(5, n) == [slice(0, 5)]
+    rng = np.random.default_rng(3)
+    s = torch.from_numpy(np.stack([_smooth_slowness(shape, i)
+                                   for i in range(5)]))
+    srcs = torch.from_numpy(rng.uniform(1.0, 7.0, (5, 3)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((5,) + shape).astype(np.float32))
+    grid, cfg = Grid(shape, (1.0, 1.0, 1.0)), EikonalConfig(tol=1e-5,
+                                                            max_iters=60)
+
+    def grads():
+        s_ = s.clone().requires_grad_(True)
+        x_ = srcs.clone().requires_grad_(True)
+        T = solve_eikonal_diff_batched(s_, x_, grid, cfg)
+        return torch.autograd.grad(T, [s_, x_], ct)
+
+    whole = grads()
+    for per_chunk in (2, 1):
+        monkeypatch.setattr(adjoint_sweep, "CHUNK_ELEMS", per_chunk * n)
+        assert len(adjoint_sweep.field_chunks(5, n)) == -(-5 // per_chunk)
+        for a, b in zip(grads(), whole):
+            assert torch.equal(a, b)

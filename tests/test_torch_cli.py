@@ -140,5 +140,5 @@ def test_cli_refuses_missing_card_and_later_slices():
     with pytest.raises(NotImplementedError, match="slice"):
         cli.main(["run", C2, *TINY, "model.mode=locate", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="slice"):
-        cli.main(["run", C2, *TINY, "model.noise_model=hierarchical",
+        cli.main(["run", C2, *TINY, "io.checkpoint_path=ck.h5",
                   "--device", "cpu"])

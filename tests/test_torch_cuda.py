@@ -1,5 +1,6 @@
 """Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1,
-``csrc/transport3d.cu``, K4, and ``csrc/sweep2d.cu``, K3) against their plain
+``csrc/transport3d.cu``, K4 and K5, and ``csrc/sweep2d.cu``, K3) against
+their plain
 PyTorch versions. They need an NVIDIA GPU with nvcc and skip elsewhere. This file imports no JAX, so it runs on a machine without
 it; there, skip tests/conftest.py (which configures JAX):
 
@@ -282,3 +283,51 @@ def test_kernels_at_config3_batch(dev):
     assert cuda_transport.TRANSPORT3D.launches == launches + 1
     lam_p = transport_cycle_plain(gg, gg, ws, 2)
     assert float((lam - lam_p).abs().max()) <= 1e-5 * float(lam_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing", [
+    ((24, 20, 16), (1.0, 1.2, 0.9)),
+    ((32, 32, 32), (1.0, 1.0, 1.0)),
+])
+def test_large_transport_kernel_equals_plain_and_k4(dev, shape, spacing):
+    """K5 forced on a shape K4 also takes: one launch equals the plain
+    cycle and K4's launch bit for bit (the same fp32 operations in the same
+    order), and a done field passes through untouched."""
+    ws, g = _transport_batch(dev, shape, spacing,
+                             [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                              [12.0, 18.0, 9.0]])
+    done = torch.tensor([False, True, False], device=dev)
+    k5 = cuda_transport.TRANSPORT3D_LARGE
+    launches = k5.launches
+    out = cuda_transport.transport_cycle(g, g, ws, 2, done, kernel=k5)
+    torch.cuda.synchronize()
+    assert k5.launches == launches + 1
+    assert torch.equal(out, transport_cycle_plain(g, g, ws, 2, done))
+    assert torch.equal(out, cuda_transport.TRANSPORT3D(g, g, ws, 2, done))
+    assert torch.equal(out[1], g[1])
+
+
+@pytest.mark.cuda
+def test_kernels_at_128_cube(dev):
+    """Config 5's 128^3 fields: the transport dispatch picks K5 (K4's five
+    planes need 320 KB), K1 takes them in 192 KB; one K1 cycle and one K5
+    cycle on two fields equal the plain cycles bit for bit."""
+    shape = (128, 128, 128)
+    assert cuda_transport.transport_kernel_for(shape) is \
+        cuda_transport.TRANSPORT3D_LARGE
+    g, s, srcs, T0, fl = _batch(dev, shape, (1.0, 1.0, 1.0),
+                                [[10.0, 20.0, 100.0], [64.0, 64.0, 3.0]])
+    T1 = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2)
+    assert torch.equal(T1, sweep_cycle_plain(T0, s, fl, g.spacing, 2))
+    T = solve_eikonal_batched(s, srcs, g, EikonalConfig(tol=1e-3,
+                                                        max_iters=20))
+    _, frozen = seed_source(s, srcs, g, 3.0)
+    ws = transport_weights(T, s, frozen, g.spacing)
+    gg = 0.1 * torch.randn(T.shape, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    launches = cuda_transport.TRANSPORT3D_LARGE.launches
+    lam = cuda_transport.transport_cycle(gg, gg, ws, 2)
+    torch.cuda.synchronize()
+    assert cuda_transport.TRANSPORT3D_LARGE.launches == launches + 1
+    assert torch.equal(lam, transport_cycle_plain(gg, gg, ws, 2))
