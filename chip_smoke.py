@@ -12,9 +12,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    checkout, one ``nvcc`` per source, all started together: K1, the 3-D
    sweep cycle (``csrc/sweep3d.cu``), K4, the adjoint transport cycle
    (``csrc/transport3d.cu``), K3, the 2-D sweep cycle
-   (``csrc/sweep2d.cu``), and K5, the adjoint transport cycle of fields
+   (``csrc/sweep2d.cu``), K5, the adjoint transport cycle of fields
    whose planes K4 cannot hold (the second entry point of
-   ``csrc/transport3d.cu``, built with K4);
+   ``csrc/transport3d.cu``, built with K4), K6, the 2-D adjoint transport
+   cycle (``csrc/transport2d.cu``), and K7, the 3-D sweep cycle with the
+   seed floor rebuilt in the kernel (the second entry point of
+   ``csrc/sweep3d.cu``, built with K1);
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes and on edge cases (bar: max abs traveltime difference <= 1e-4);
 4. K4 against its plain version (bar: max abs difference <= 1e-5 of the
@@ -75,24 +78,46 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 15. K1 and K5 at config 5's 128^3 batch, 4 prior-drawn chains x 24
    surface stations = 96 fields (the route whose TPU solves are the
    blocked ones, ``sweep_solve_pallas_blocked`` and
-   ``transport_solve_pallas_blocked``): K1 one cycle against the plain
-   cycle (bar 1e-4) and a solve at the config's tol (cycles counted, and
-   the cycles the tol needs without the config's ``max_iters``), K5
+   ``transport_solve_pallas_blocked``, whose iteration is two whole-field
+   cycles, as the port's on this route): K1 one cycle against the plain
+   cycle (bar 1e-4) and a solve at the config's tol and ``max_iters`` 20
+   (cycles counted, and its error to the field converged without the
+   ``max_iters``), K5
    one cycle with cotangents of config 5's joint log-likelihood against the
    plain cycle (bar 1e-5 of its max abs) and a solve (cycles counted);
 16. config 5's joint NUTS with spike-slab noise through
    ``mceik_tpu_torch.cli.main(["run", "configs/c5_pod_nuts.json", ...])``
    at full width (128^3 grid, 16^3 basis, 32 events, 24 stations,
    ``dist.multihost`` on, which warns and runs as one process) with 4
-   chains and the depth cut (max tree depth 2, 4 warmup and 2 sampling
+   chains and the depth cut (max tree depth 1, 4 warmup and 2 sampling
    steps), counts reset and read: K1 and K5 launched, logposts finite and
-   rising, every indicator in {0, 1}.
+   rising, every indicator in {0, 1};
+17. K6 against its plain version (bar 0.0) on three batches: config 1's
+   32 fields of 65^2 with weights from K3's solves and cotangents of the
+   config-1 log-likelihood (one cycle and a solve), 80,000 prior-drawn
+   config-4 fields of 48^2 with weights from K3's solves (one cycle), and an
+   odd anisotropic batch with done flags and a divergent field (one cycle;
+   a solve, in which the divergent field must come back all NaN);
+18. config 1's logpost gradient of 4 chains through K3 + K6 against the
+   plain solves on the card (bar 1e-5 of its max abs) and against a central
+   finite difference (bar: relative error < 0.1);
+19. config 1 through ``mceik_tpu_torch.cli.main`` at full width (65^2
+   grid, 16^2 basis, 8 sources, 12 receivers, 4 chains) with
+   ``sampler.algorithm=nuts`` (depth cut: max tree depth 5, 30 + 30 steps)
+   and with ``sampler.algorithm=mala`` (Laplace setup on 256 dims cut to 40
+   MAP steps, 30 + 60 steps), counts reset and read for each: K3 and K6
+   launched, logposts finite and rising;
+20. K7 against K1 on config 2's 128 fields of 64^3 (bar 0.0): one cycle
+   (K7 with the source scalars, K1 with ``seed_floor``, timed in turns) and
+   the whole ``solve_eikonal_batched(..., impl="gridbatch")`` against
+   ``impl="field"``, its K7 launches counted from 0 over that solve.
 
 The line before the last is a JSON object listing the kernels with their
 launch counts (K1 and K4 on the MALA path, K3 on the SMC path, K5 on the
-config-5 path; K1's and K4's config-3 NUTS counts and times, K1's config-5
-counts and times, K5's time forced on config 2's batch and K3's config-1
-times beside),
+config-5 path, K6 on config 1's NUTS path, K7 on the gridbatch solve; K1's
+and K4's config-3 NUTS counts and times, K1's config-5 counts and times,
+K5's time forced on config 2's batch, K3's config-1 times, K6's config-1
+MALA count and config-4 times and K1's time beside K7's),
 errors, times and bounds (the larger of
 bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, counted from
 each kernel's source at the shapes timed); the last line is
@@ -145,11 +170,21 @@ C3_HMC_ARGS = ["sampler.algorithm=hmc", "sampler.n_leapfrog=8",
                "sampler.n_warmup=6", "sampler.n_samples=4", "io.log_every=4"]
 # c5_pod_nuts.json at full width but 4 of its 1024 chains (1024 x 24 fields
 # of 8 MB do not fit one card); depth cut from 500 warmup and 2000 sampling
-# steps at max tree depth 7.
+# steps at max tree depth 7 (to depth 1: its solves run up to 40 cycles,
+# the reference's count at 128^3, twice what depth 2 paid before).
 C5_CHAINS = 4
-C5_ARGS = [f"sampler.n_chains={C5_CHAINS}", "sampler.max_tree_depth=2",
+C5_ARGS = [f"sampler.n_chains={C5_CHAINS}", "sampler.max_tree_depth=1",
            "sampler.n_warmup=4", "sampler.n_samples=2", "sampler.thin=1",
            "io.log_every=1"]
+# c1_crosswell.json at full width under the gradient samplers; depth cut
+# from 2000 warmup and 6000 sampling steps (thinned 4) at max tree depth 6,
+# and the Laplace setup's 150 MAP steps to 40.
+C1_NUTS_ARGS = ["sampler.algorithm=nuts", "sampler.n_warmup=30",
+                "sampler.n_samples=30", "sampler.thin=1",
+                "sampler.max_tree_depth=5", "io.log_every=15"]
+C1_MALA_ARGS = ["sampler.algorithm=mala", "sampler.n_map_steps=40",
+                "sampler.n_warmup=30", "sampler.n_samples=60",
+                "sampler.thin=1", "io.log_every=30"]
 
 # The card's peaks (H100 SXM data sheet, at 700 W): fp32 outside the tensor
 # cores and HBM bandwidth.
@@ -173,9 +208,24 @@ def _bound(nodes, bytes_per_node, ops_per_node):
 #   neighbour minima 6, the min/max with T and the floor 2 -> 46 per step;
 # K3 (sweep2d.cu): local2 ~17, line minimum 3, min/max 2 -> 22 per step;
 # K4 (transport3d.cu): the axial inflow and base 6 per pass, 12 per step
-#   (four guarded weight x lam products and their sum).
+#   (four guarded weight x lam products and their sum);
+# K6 (transport2d.cu): the axial inflow and base 6 per pass, 6 per step
+#   (two guarded weight x lam products and their sums);
+# K7 (sweep3d.cu, seeded): K1's 46 per step, and the floor's 15 (three
+#   differences, scalings and squares, three adds, sqrt, compare, product)
+#   once per node and cycle: the floor depends on the node alone, so that
+#   is all the function needs. The kernel recomputes it at every Jacobi
+#   step of every pass (6 n_inner times), more than the bound counts.
 def _k1_ops(n_inner):
     return 6 * (46 * n_inner + 1)
+
+
+def _k7_ops(n_inner):
+    return 6 * (46 * n_inner + 1) + 15
+
+
+def _k6_ops(n_inner):
+    return 4 * (6 + 6 * n_inner)
 
 
 def _k3_ops(n_inner):
@@ -254,7 +304,8 @@ def _build_all(kernels):
         print(f"build: {k.symbol} ({k.source.relative_to(REPO)}) in "
               f"{k.build_seconds:.2f} s")
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -308,13 +359,18 @@ def main() -> int:
     from mceik_tpu_torch.datasets import make_dataset
     from mceik_tpu_torch.datasets.synthetic import (borehole_3d_geometry,
                                                     checkerboard_slowness)
-    from mceik_tpu_torch.eikonal import cuda_sweep, cuda_sweep2d, cuda_transport
-    from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
+    from mceik_tpu_torch.eikonal import (cuda_sweep, cuda_sweep2d,
+                                         cuda_transport, cuda_transport2d)
+    from mceik_tpu_torch.eikonal.adjoint_sweep import (batch_weights,
+                                                       transport_cycle_plain,
                                                        transport_solve,
                                                        transport_weights)
     from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
-    from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                               seed_source, sweep_cycle_plain,
+    from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
+                                               seed_floor, seed_source,
+                                               solve_route, source_scalars,
+                                               sweep_cycle_plain,
+                                               sweep_seeded_cycle_plain,
                                                sweep_solve)
     from mceik_tpu_torch.forward.predict import interp_tables, predict_events
     from mceik_tpu_torch.grid import Grid
@@ -344,7 +400,8 @@ def main() -> int:
     # 2. Build.
     k1, k4 = cuda_sweep.SWEEP3D, cuda_transport.TRANSPORT3D
     k3, k5 = cuda_sweep2d.SWEEP2D, cuda_transport.TRANSPORT3D_LARGE
-    _build_all([k1, k4, k3, k5])
+    k6, k7 = cuda_transport2d.TRANSPORT2D, cuda_sweep.SWEEP3D_SEEDED
+    _build_all([k1, k4, k3, k5, k6, k7])
 
     # 3. K1 vs plain, on the card.
     cfg = load_config(AM_CONFIG)
@@ -353,7 +410,8 @@ def main() -> int:
     off = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="off")
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": [],
-            "transport3d_large_cycle": []}
+            "transport3d_large_cycle": [], "transport2d_cycle": [],
+            "sweep3d_seeded_cycle": []}
 
     def compare(label, s, srcs, g):
         launches0 = k1.launches
@@ -1004,25 +1062,30 @@ def main() -> int:
     T5, ms_s5k = _timed(lambda: solve_eikonal_batched(
         s5, srcs5, g5, dataclasses.replace(ecfg5, use_pallas="on")))
     cycles5 = (k1.launches - l1) / 2     # the warm-up call and the timed one
+    route5 = solve_route(g5.shape, "on", dev)
     print(f"K1 compare c5 batch: B={T0_5.shape[0]} grid={g5.shape}: one cycle "
           f"max|kernel-plain| = {err_c5:.3e}, ms per launch kernel "
           f"{ms_k1_c5:.3f}, plain {ms_k1_c5_plain:.3f}; kernel solve at tol "
-          f"{ecfg5.tol}: {cycles5:.0f} cycles, {ms_s5k:.3f} ms")
+          f"{ecfg5.tol}, max_iters {ecfg5.max_iters}, route {route5} "
+          f"({CYCLES_PER_ITER[route5]} cycles per iteration): {cycles5:.0f} "
+          f"cycles, {ms_s5k:.3f} ms")
+    if route5 != "blocked":
+        raise RuntimeError(f"c5: route {route5}, not the blocked count")
     if not (bool(torch.isfinite(T5).all()) and err_c5 <= K1_BAR):
         raise RuntimeError(f"K1 c5: kernel disagrees with plain ({err_c5})")
     errs["sweep3d_cycle"].append(err_c5)
     del T0_5, fl5
-    # The config's max_iters against the cycles its tol needs at 128^3.
+    # The error at the config's max_iters to the converged field (tol
+    # 1e-5, no max_iters to speak of).
     l1 = k1.launches
     T5c = solve_eikonal_batched(s5, srcs5, g5, dataclasses.replace(
-        ecfg5, max_iters=300))
+        ecfg5, tol=1e-5, max_iters=300))
     gap = (T5 - T5c).abs().flatten(1).amax(1)
-    print(f"K1 c5 batch to tol {ecfg5.tol} without the config's max_iters "
-          f"{ecfg5.max_iters}: {k1.launches - l1} cycles; at "
-          f"{ecfg5.max_iters} the traveltimes differ by up to "
-          f"{float(gap.max()):.4f} (max T {float(T5c.max()):.2f}), on "
-          f"{int((gap > c5.model.sigma).sum())} of {gap.numel()} fields by "
-          f"more than sigma {c5.model.sigma}")
+    print(f"K1 c5 batch converged to tol 1e-5: {k1.launches - l1} cycles; "
+          f"at tol {ecfg5.tol} and max_iters {ecfg5.max_iters} the "
+          f"traveltimes are up to {float(gap.max()):.6f} from it (max T "
+          f"{float(T5c.max()):.2f}), on {int((gap > c5.model.sigma).sum())} "
+          f"of {gap.numel()} fields by more than sigma {c5.model.sigma}")
     del T5c, gap
 
     T5g = T5.clone().requires_grad_(True)
@@ -1050,7 +1113,8 @@ def main() -> int:
     l5 = k5.launches
     lam5, ms_sk5 = _timed(lambda: transport_solve(
         ct5, ws5, ecfg5.tol, ecfg5.max_iters, ecfg5.n_inner,
-        cycle=cuda_transport.transport_cycle))
+        cycle=cuda_transport.transport_cycle,
+        cycles_per_iter=CYCLES_PER_ITER[route5]))
     tcycles5 = (k5.launches - l5) / 2
     print(f"K5 solve c5 batch at tol {ecfg5.tol}: {tcycles5:.0f} cycles, "
           f"{ms_sk5:.3f} ms, finite {bool(torch.isfinite(lam5).all())}")
@@ -1109,6 +1173,260 @@ def main() -> int:
           f"{steps} steps after init; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (cli wall "
           f"{wall:.1f} s)")
+    print(f"phases 1-16 wall {time.perf_counter() - t_start:.1f} s")
+
+    # 17. K6 against its plain version on three batches (bar 0.0: the same
+    # fp32 operations in the same order).
+    def k6_check(label, out_k, out_p, sel=slice(None)):
+        err = float((out_k[sel] - out_p[sel]).abs().max())
+        finite = bool(torch.isfinite(out_k[sel]).all())
+        print(f"K6 compare {label}: max|kernel-plain| = {err:.3e} "
+              f"(max|plain| {float(out_p[sel].abs().max()):.3e})")
+        if not (finite and err == 0.0):
+            raise RuntimeError(f"K6 {label}: kernel disagrees with plain "
+                               f"({err}, finite {finite})")
+        errs["transport2d_cycle"].append(err)
+
+    # (a) config 1's batch: K3's solves of its 4 chains x 8 sources and the
+    # cotangents of its log-likelihood there.
+    n1c = c1.sampler.n_chains
+    s1c = s1.contiguous()
+    srcs1 = data1.src_xyz.repeat(n1c, 1)
+    T1 = solve_eikonal_batched(s1c, srcs1, g1, ecfg1).requires_grad_(True)
+    resid1 = data1.t_obs - interp_tables(
+        T1.reshape((n1c, n_src1) + g1.shape), data1.rec_xyz, g1)
+    (ct1,) = torch.autograd.grad(_gaussian_loglik(
+        resid1, torch.full_like(resid1, c1.model.sigma), None).sum(), T1)
+    T1 = T1.detach()
+    ws1 = batch_weights(T1, s1c, srcs1, g1, ecfg1.seed_radius)
+    done1 = torch.zeros(T1.shape[0], dtype=torch.bool, device=dev)
+    l6 = k6.launches
+    lam1_k6, ms_k6 = _timed(lambda: cuda_transport.transport_cycle(
+        ct1, ct1, ws1, ecfg1.n_inner, done1), reps=10)
+    if k6.launches == l6:
+        raise RuntimeError("K6 c1 cycle: the kernel was not launched")
+    lam1_p6, ms_k6_plain = _timed(lambda: transport_cycle_plain(
+        ct1, ct1, ws1, ecfg1.n_inner, done1))
+    print(f"K6 one cycle, c1 batch B={ct1.shape[0]} grid={g1.shape}: ms per "
+          f"launch: kernel {ms_k6:.3f}, plain {ms_k6_plain:.3f}")
+    k6_check("c1 batch (log-likelihood cotangents, one cycle)", lam1_k6,
+             lam1_p6)
+    lam_k, ms_sk = _timed(lambda: transport_solve(
+        ct1, ws1, ecfg1.tol, ecfg1.max_iters, ecfg1.n_inner,
+        cycle=cuda_transport.transport_cycle))
+    lam_p, ms_sp = _timed(lambda: transport_solve(
+        ct1, ws1, ecfg1.tol, ecfg1.max_iters, ecfg1.n_inner))
+    print(f"K6 solve c1 batch at tol {ecfg1.tol}: ms per solve kernel "
+          f"{ms_sk:.3f}, plain {ms_sp:.3f}")
+    k6_check("c1 batch (solve)", lam_k, lam_p)
+    b_k6, by_k6 = _bound(ct1.numel(), 20, _k6_ops(ecfg1.n_inner))
+    del lam1_k6, lam1_p6, lam_k, lam_p
+
+    # (b) a config-4 batch: 10,000 prior-drawn particles x 8 sources,
+    # weights from K3's solves, random cotangents.
+    parts4 = post4.sample_prior(gen, n_part)
+    s4 = post4.slowness_of(parts4).unsqueeze(1).expand(
+        (n_part, n_src4) + g4.shape).reshape((-1,) + g4.shape).contiguous()
+    srcs4 = data4.src_xyz.repeat(n_part, 1)
+    T4 = solve_eikonal_batched(s4, srcs4, g4, ecfg4)
+    ws4 = batch_weights(T4, s4, srcs4, g4, ecfg4.seed_radius)
+    del T4, s4, parts4
+    ct4 = 0.1 * torch.randn(ws4[0].shape, generator=gen, device=dev)
+    done4 = torch.zeros(ct4.shape[0], dtype=torch.bool, device=dev)
+    l6 = k6.launches
+    lam4_k, ms_k6_c4 = _timed(lambda: cuda_transport.transport_cycle(
+        ct4, ct4, ws4, ecfg4.n_inner, done4), reps=10)
+    if k6.launches == l6:
+        raise RuntimeError("K6 c4 cycle: the kernel was not launched")
+    lam4_p, ms_k6_c4_plain = _timed(lambda: transport_cycle_plain(
+        ct4, ct4, ws4, ecfg4.n_inner, done4))
+    print(f"K6 one cycle, c4 batch B={ct4.shape[0]} grid={g4.shape}: ms per "
+          f"launch: kernel {ms_k6_c4:.3f}, plain {ms_k6_c4_plain:.3f}")
+    k6_check("c4 batch (K3-solved weights, one cycle)", lam4_k, lam4_p)
+    b_k6_c4, _ = _bound(ct4.numel(), 20, _k6_ops(ecfg4.n_inner))
+    del lam4_k, lam4_p, ct4, ws4, srcs4
+    torch.cuda.empty_cache()
+
+    # (c) the odd anisotropic batch of phase 8 with its done flags, and a
+    # divergent field (node pairs feeding each other with weight 1.3).
+    T_o = solve_eikonal_batched(s_o, srcs_o, g_o,
+                                EikonalConfig(tol=1e-5, max_iters=100))
+    ws_o = batch_weights(T_o, s_o, srcs_o, g_o, 3.0)
+    div2 = []
+    for d, n in enumerate(g_o.shape):
+        idx = torch.arange(n, device=dev).reshape(
+            [-1 if e == d else 1 for e in range(2)])
+        div2.append(torch.where(idx % 2 == 0, -1.3, 1.3).expand(g_o.shape))
+    ws_od = tuple(torch.cat([w, dv[None]]).contiguous()
+                  for w, dv in zip(ws_o, div2))
+    g_od = torch.cat([0.1 * torch.randn(T_o.shape, generator=gen, device=dev),
+                      torch.ones_like(T_o[:1])])
+    done_od = torch.cat([done_o, torch.zeros(1, dtype=torch.bool,
+                                             device=dev)])
+    out_k = cuda_transport.transport_cycle(g_od, g_od, ws_od, 2, done_od)
+    out_p = transport_cycle_plain(g_od, g_od, ws_od, 2, done_od)
+    if not torch.equal(out_k[done_od], g_od[done_od]):
+        raise RuntimeError("K6 odd batch: a done field was swept")
+    k6_check(f"odd batch B={g_od.shape[0]} grid={g_o.shape} spacing "
+             f"{g_o.spacing}, {int(done_od.sum())} done (one cycle)",
+             out_k, out_p)
+    lam_k = transport_solve(g_od, ws_od, 1e-6, 30, 2,
+                            cycle=cuda_transport.transport_cycle)
+    lam_p = transport_solve(g_od, ws_od, 1e-6, 30, 2)
+    if not (bool(torch.isnan(lam_k[-1]).all())
+            and bool(torch.isnan(lam_p[-1]).all())):
+        raise RuntimeError("K6 odd batch: the divergent field is not all NaN")
+    k6_check("odd batch (solve, the finite fields; the divergent one is "
+             "all NaN)", lam_k, lam_p, sel=slice(0, -1))
+
+    # 18. Config 1's gradient on the card: K3 + K6 against the plain
+    # solves, and against a central finite difference.
+    post1_k = build_posterior(c1.model, data1, g1, c1.eikonal,
+                              differentiable=True)
+    post1_p = build_posterior(
+        c1.model, data1, g1,
+        apply_overrides(c1, ["eikonal.use_pallas=off"]).eikonal,
+        differentiable=True)
+    params1 = Params(u=u1)
+    l3, l6 = k3.launches, k6.launches
+    (lp1k, g1k), ms_g1k = _timed(lambda: value_and_grad(post1_k.logpost)(
+        params1))
+    if k3.launches == l3 or k6.launches == l6:
+        raise RuntimeError("c1 gradient: a kernel was not launched")
+    (lp1p, g1p), ms_g1p = _timed(lambda: value_and_grad(post1_p.logpost)(
+        params1))
+    gscale1 = float(g1p.u.abs().max())
+    gerr1 = float((g1k.u - g1p.u).abs().max())
+    print(f"c1 gradient, {n1c} chains: max|kernel-plain| = {gerr1:.3e} (max|"
+          f"grad| {gscale1:.3e}), logpost max|diff| "
+          f"{float((lp1k - lp1p).abs().max()):.3e}; ms per value_and_grad: "
+          f"kernels {ms_g1k:.3f}, plain {ms_g1p:.3f}")
+    if not bool(torch.isfinite(g1k.u).all()) or \
+            not gerr1 <= GRAD_REL_BAR * gscale1:
+        raise RuntimeError(f"c1 gradient: kernels disagree with plain "
+                           f"({gerr1})")
+    post1_fd = build_posterior(
+        c1.model, data1, g1,
+        apply_overrides(c1, ["eikonal.tol=1e-6",
+                             "eikonal.max_iters=300"]).eikonal,
+        differentiable=True)
+    _, g1fd = value_and_grad(post1_fd.logpost)(params1)
+    v1 = torch.randn(u1.shape, generator=gen, device=dev)
+    v1 = v1 / v1.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    eps = 1e-3
+    fd1 = (post1_fd.logpost(Params(u=u1 + eps * v1))
+           - post1_fd.logpost(Params(u=u1 - eps * v1))) / (2 * eps)
+    ad1 = (g1fd.u * v1).flatten(1).sum(1)
+    rel1 = float((ad1.sum() - fd1.sum()).abs()
+                 / torch.maximum(ad1.sum().abs(), fd1.sum().abs()))
+    worst1 = float(((ad1 - fd1).abs() / torch.maximum(ad1.abs(),
+                                                      fd1.abs())).max())
+    print(f"c1 gradient vs central finite difference along one random "
+          f"direction of all {n1c} chains' parameters at tol 1e-6: relative "
+          f"error {rel1:.3e} (bar {FD_BAR}); worst single chain {worst1:.3e}")
+    if not rel1 < FD_BAR:
+        raise RuntimeError(f"c1 gradient: finite difference disagrees "
+                           f"({rel1})")
+    del post1_k, post1_p, post1_fd
+
+    # 19. Config 1 under NUTS and under MALA through the CLI.
+    def c1_leg(label, args):
+        for k in (k1, k3, k4, k5, k6, k7):
+            k.launches = 0
+        recs, lines, wall = _run_cli(cli, ["run", C1_CONFIG, *args])
+        launches = {"sweep2d_cycle": k3.launches,
+                    "transport2d_cycle": k6.launches}
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"{label}: a kernel was never launched "
+                               f"({launches})")
+        run_cfg = apply_overrides(c1, args)
+        init, samp, steps, rate_all, rate_last = _check_run(
+            recs, label, run_cfg.sampler.n_warmup, run_cfg.sampler.n_chains)
+        if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+            raise RuntimeError(f"{label}: logpost did not rise "
+                               f"({init['logpost_mean']} -> "
+                               f"{samp[-1]['logpost_mean']})")
+        return recs, launches, init, samp, steps, rate_all, rate_last, wall
+
+    recs, c1_nuts_launches, init, samp, steps, rate_all, rate_last, wall = \
+        c1_leg("c1 NUTS path", C1_NUTS_ARGS)
+    print(f"c1 NUTS path: launches {c1_nuts_launches} "
+          f"({c1_nuts_launches['transport2d_cycle'] / steps:.1f} K6 per step "
+          f"over {steps} steps); logpost_mean {init['logpost_mean']} -> "
+          f"{samp[-1]['logpost_mean']}; mean tree depth "
+          f"{mean('tree_depth'):.3f}, divergent share {mean('divergent'):.3f}, "
+          f"acceptance statistic {mean('accept'):.4f}; {rate_all:.3f} "
+          f"chain-steps/s over {steps} steps after init, {rate_last:.3f} in "
+          f"the last segment (cli wall {wall:.1f} s)")
+    recs, c1_mala_launches, init, samp, steps, rate_all, rate_last, wall = \
+        c1_leg("c1 MALA path", C1_MALA_ARGS)
+    lap = [r for r in recs if r["phase"] == "laplace"]
+    if len(lap) != 1 or not lap[0]["logpost_last"] > lap[0]["logpost_first"]:
+        raise RuntimeError(f"c1 MALA path: the Laplace MAP trace did not "
+                           f"rise ({lap})")
+    if not 0.05 < mean("accept") < 0.99:
+        raise RuntimeError(f"c1 MALA path: acceptance {mean('accept')} "
+                           "outside (0.05, 0.99)")
+    print(f"c1 MALA path: launches {c1_mala_launches}; Laplace setup "
+          f"{lap[0]['seconds']:.3f} s (MAP trace {lap[0]['logpost_first']} -> "
+          f"{lap[0]['logpost_last']}); logpost_mean {init['logpost_mean']} -> "
+          f"{samp[-1]['logpost_mean']}; acceptance {mean('accept'):.4f}; "
+          f"{rate_all:.2f} chain-steps/s over {steps} steps after init, "
+          f"{rate_last:.2f} in the last segment (cli wall {wall:.1f} s)")
+
+    # 20. K7 against K1 on config 2's batch: one cycle (timed in turns),
+    # then the gridbatch solve against the field route's.
+    n_in2 = cfg.eikonal.n_inner
+    scal_a = torch.cat(source_scalars(s_a, srcs_a, grid), dim=1).contiguous()
+
+    def k1_cycle():
+        return cuda_sweep.sweep_cycle(T0, s_a, floor, grid.spacing, n_in2,
+                                      done)
+
+    def k7_cycle():
+        return cuda_sweep.seeded_cycle(T0, s_a, scal_a, grid.spacing, n_in2,
+                                       done,
+                                       seed_radius=cfg.eikonal.seed_radius)
+
+    out_1, ms_a1 = _timed(k1_cycle, reps=10)
+    out_7, ms_a7 = _timed(k7_cycle, reps=10)
+    _, ms_b7 = _timed(k7_cycle, reps=10)
+    _, ms_b1 = _timed(k1_cycle, reps=10)
+    out_p7, ms_k7_plain = _timed(lambda: sweep_seeded_cycle_plain(
+        T0, s_a, scal_a, grid.spacing, n_in2, done,
+        seed_radius=cfg.eikonal.seed_radius))
+    err7 = max(float((out_7 - out_1).abs().max()),
+               float((out_7 - out_p7).abs().max()))
+    ms_k7, ms_k1_turns = (ms_a7 + ms_b7) / 2, (ms_a1 + ms_b1) / 2
+    print(f"K7 one cycle, c2 batch B={T0.shape[0]} grid={grid.shape}: "
+          f"max|K7-K1|, max|K7-plain| = {err7:.3e}; ms per launch in turns "
+          f"K1 {ms_a1:.3f}, K7 {ms_a7:.3f}, K7 {ms_b7:.3f}, K1 {ms_b1:.3f}; "
+          f"plain seeded cycle {ms_k7_plain:.3f}")
+    if not (torch.equal(out_7, out_1) and torch.equal(out_7, out_p7)):
+        raise RuntimeError(f"K7 cycle: disagrees with K1 or plain ({err7})")
+    errs["sweep3d_seeded_cycle"].append(err7)
+    del out_1, out_7, out_p7
+    for k in (k1, k3, k4, k5, k6, k7):
+        k.launches = 0
+    T_gb = solve_eikonal_batched(s_a, srcs_a, grid, econf, impl="gridbatch")
+    gb_launches = {"sweep3d_seeded_cycle": k7.launches,
+                   "sweep3d_cycle": k1.launches}
+    if gb_launches["sweep3d_seeded_cycle"] <= 0 or k1.launches:
+        raise RuntimeError(f"gridbatch solve: not through K7 alone "
+                           f"({gb_launches})")
+    _, ms_gb = _timed(lambda: solve_eikonal_batched(
+        s_a, srcs_a, grid, econf, impl="gridbatch"))
+    T_fd, ms_fd = _timed(lambda: solve_eikonal_batched(
+        s_a, srcs_a, grid, econf, impl="field"))
+    err_gb = float((T_gb - T_fd).abs().max())
+    print(f"gridbatch solve, c2 batch at tol {econf.tol}: launches "
+          f"{gb_launches}; max|gridbatch-field| = {err_gb:.3e}; ms per solve "
+          f"gridbatch {ms_gb:.3f}, field {ms_fd:.3f}")
+    if not torch.equal(T_gb, T_fd):
+        raise RuntimeError(f"gridbatch solve disagrees with field ({err_gb})")
+    errs["sweep3d_seeded_cycle"].append(err_gb)
+    b_k7, by_k7 = _bound(s_a.numel(), 12 + 16 * s_a.shape[0] / s_a.numel(),
+                         _k7_ops(n_in2))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
@@ -1187,6 +1505,38 @@ def main() -> int:
         "library_ms": None,
         "c2_forced_ms": ms_k5_c2,
         "c2_bound_ms": b_k5_c2,
+    }, {
+        "name": "transport2d_cycle",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/transport2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_transport.py:132 (2-D fields, "
+                    "via transport_cycle_pallas :148)",
+        "launches": c1_nuts_launches["transport2d_cycle"],
+        "max_abs_err": max(errs["transport2d_cycle"]),
+        "ms": ms_k6,
+        "plain_ms": ms_k6_plain,
+        "bound_ms": b_k6,
+        "bound_by": by_k6,
+        "library_ms": None,
+        "c1_mala_launches": c1_mala_launches["transport2d_cycle"],
+        "c4_ms": ms_k6_c4,
+        "c4_plain_ms": ms_k6_c4_plain,
+        "c4_bound_ms": b_k6_c4,
+    }, {
+        "name": "sweep3d_seeded_cycle",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/sweep3d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:740",
+        "launches": gb_launches["sweep3d_seeded_cycle"],
+        "max_abs_err": max(errs["sweep3d_seeded_cycle"]),
+        "ms": ms_k7,
+        "plain_ms": ms_k7_plain,
+        "bound_ms": b_k7,
+        "bound_by": by_k7,
+        "library_ms": None,
+        "k1_ms_same_call": ms_k1_turns,
+        "solve_ms": ms_gb,
+        "field_solve_ms": ms_fd,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

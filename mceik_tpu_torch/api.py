@@ -63,8 +63,7 @@ class RunSummary:
 
 
 def _check_supported(config: RunConfig) -> None:
-    """Refuse, naming the later slice, what this slice of the port does not
-    run yet."""
+    """Refuse, naming the feature, what the port does not run yet."""
     scfg = config.sampler
     if scfg.algorithm == "smc":
         raise ValueError("sampler 'smc' has its own entry point: "
@@ -77,24 +76,25 @@ def _check_supported(config: RunConfig) -> None:
 
 
 def check_run_options(config: RunConfig) -> None:
-    """Refuse the io and dist options of later slices (every sampler).
+    """Refuse the io and dist options the port does not run yet (every
+    sampler).
 
     ``dist.multihost`` without a multi-process launcher (``WORLD_SIZE``
     unset or 1) warns and runs as one process on the requested device, as
     the reference's ``init_distributed`` falls back when no coordinator
-    answers; more than one process or device is the distribution slice."""
+    answers; more than one process or device is distribution, not ported
+    yet."""
     io, dist = config.io, config.dist
     if io.checkpoint_path or io.resume or io.checkpoint_every:
-        raise NotImplementedError("checkpointing and resume are slice 6 of "
-                                  "the port")
+        raise NotImplementedError("checkpointing and resume are not ported "
+                                  "yet")
     if io.profile_dir:
         raise NotImplementedError("io.profile_dir: profiling is not ported")
     world = os.environ.get("WORLD_SIZE", "") or "1"
     if (dist.n_devices or 1) > 1 or world != "1":
         raise NotImplementedError(
             f"multi-device runs (dist.n_devices={dist.n_devices}, "
-            f"WORLD_SIZE={world}) are the distribution slice of the port, "
-            "slice 7")
+            f"WORLD_SIZE={world}): distribution is not ported yet")
     if dist.multihost:
         warnings.warn("dist.multihost=true but no multi-process launcher "
                       "(WORLD_SIZE unset or 1): continuing as one process on "

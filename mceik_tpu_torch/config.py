@@ -3,7 +3,7 @@
 Counterpart of ``mceik_tpu/config.py``: the same frozen dataclasses with
 the same fields and defaults, so every ``configs/*.json`` loads unchanged.
 Fields whose feature the port does not run yet stay, and the code that
-would read them raises ``NotImplementedError`` naming the later slice.
+would read them raises ``NotImplementedError`` naming the feature.
 """
 
 from __future__ import annotations

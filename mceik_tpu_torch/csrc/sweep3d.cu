@@ -38,6 +38,28 @@
 // strided by nz floats, so its loads do not coalesce. Transposed layouts,
 // clusters and TMA are later work.
 //
+// K7 is the same kernel with kSeeded = true. It replaces the Pallas TPU
+// kernel `_sweep_axis0_seeded_kernel` / `sweep_axis0_gridbatch`
+// (pallas_sweep.py:667, :740, call :762), the opt-in gridbatch route
+// (`solve_eikonal_batched(..., impl="gridbatch")`), which marches a whole
+// batch per launch and rebuilds the seed floor in the kernel instead of
+// reading a floor field. K7 takes no floor operand: it reads four floats
+// per field, the source's fractional index coordinates (a, b, c) and its
+// slowness s_src, and computes at each node of each Jacobi step
+//   dist = sqrtf(((((i-a)*h0)^2 + ((j-b)*h1)^2) + ((k-c)*h2)^2) + 1e-12f),
+//   floor = dist <= radius ? s_src * dist : 0,
+// summed in the grid's own axis order whatever the swept axis (the TPU
+// kernel's `floor_at` sums in its permuted order, a different rounding the
+// port does not copy), so its floor is bitwise the `seed_floor` K1 reads.
+// That saves K1's floor read, 4 of its 16 bytes per node and cycle, for
+// ~12 flops and a sqrt per node and step. The floor depends on the node
+// alone, so the function needs it once per node and cycle; recomputing it
+// at each of the 6 * n_inner steps costs more operations than that (the
+// bound counts it once) but no shared memory, which K7 keeps at K1's three
+// planes. K1 is bound by latency and barriers, so little speed is expected. The TPU kernel's lane packing, its
+// done flag in `scal` column 4 and its per-block convergence are left out:
+// done flags are per field, as K1's.
+//
 // Arithmetic matches mceik_tpu_torch/eikonal/godunov.py (and the JAX
 // package) in operation order; build with --fmad=false so that no product
 // is contracted into an FMA the reference does not have.
@@ -56,7 +78,19 @@ struct SweepConsts {
   float w[3];   // 1/(h*h), rounded once from double
   int iso;      // all spacings equal -> closed form (godunov.py's choice)
   int n_inner;
+  float radius;  // K7: seed ball radius, seed_radius * max(h), in fp32
 };
+
+// K7's floor at node (i0, i1, i2) from the field's (a, b, c, s_src):
+// solve.seeded_floor_plain's operations in its order.
+__device__ __forceinline__ float seeded_floor(const float* sc, int i0, int i1,
+                                              int i2, const SweepConsts& c) {
+  const float d0 = ((float)i0 - sc[0]) * c.h[0];
+  const float d1 = ((float)i1 - sc[1]) * c.h[1];
+  const float d2 = ((float)i2 - sc[2]) * c.h[2];
+  const float dist = sqrtf(((d0 * d0 + d1 * d1) + d2 * d2) + 1e-12f);
+  return dist <= c.radius ? sc[3] * dist : 0.0f;
+}
 
 __device__ __forceinline__ float sqrt_floored(float x) {
   return sqrtf(fmaxf(x, kDiscFloor));
@@ -111,7 +145,9 @@ __device__ __forceinline__ float local_weighted(float a1, float a2, float a3,
 }
 
 // T is read and written by the CTA (no __restrict__/read-only path: later
-// plane visits must see earlier stores of the same CTA).
+// plane visits must see earlier stores of the same CTA). K1 reads the floor
+// field F; K7 (kSeeded) the field's four seed scalars at F + 4 b.
+template <bool kSeeded>
 __global__ void __launch_bounds__(1024)
 sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
                      const float* __restrict__ F,
@@ -122,7 +158,10 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
   const int64_t field = (int64_t)n0 * n1 * n2;
   T += b * field;
   S += b * field;
-  F += b * field;
+  F += kSeeded ? 4 * (int64_t)b : b * field;
+  float sc[4];
+  if (kSeeded)
+    for (int e = 0; e < 4; ++e) sc[e] = F[e];
 
   extern __shared__ float smem[];
   const int n[3] = {n0, n1, n2};
@@ -179,7 +218,18 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
             const float s = S[off];
             const float t = c.iso ? local_iso(aax[m], ap, aq, s, h, hh)
                                   : local_weighted(aax[m], ap, aq, w0, w1, w2, s);
-            nxt[m] = fmaxf(fminf(tc, t), F[off]);
+            float fl;
+            if (kSeeded) {
+              // The node's grid indices: i on the swept axis, ip and iq on
+              // the plane axes p < q.
+              const int g0 = ax == 0 ? i : ip;
+              const int g1 = ax == 1 ? i : (ax == 0 ? ip : iq);
+              const int g2 = ax == 2 ? i : iq;
+              fl = seeded_floor(sc, g0, g1, g2, c);
+            } else {
+              fl = F[off];
+            }
+            nxt[m] = fmaxf(fminf(tc, t), fl);
           }
           __syncthreads();
           float* tmp = cur; cur = nxt; nxt = tmp;
@@ -203,16 +253,10 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
   }
 }
 
-}  // namespace
-
-// C entry, loaded with ctypes. `consts` is a host array of 9 floats
-// (h[3], hh[3], w[3]). Launches on `stream` of `device`; returns the CUDA
-// error code of the set-up calls or of cudaGetLastError() after the launch
-// (0 = launched). Does not synchronise.
-extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
-                             const uint8_t* done, int B, int n0, int n1,
-                             int n2, const float* consts, int iso, int n_inner,
-                             int threads, int device, void* stream) {
+template <bool kSeeded>
+int launch(float* T, const float* S, const float* F, const uint8_t* done,
+           int B, int n0, int n1, int n2, const float* consts, int iso,
+           int n_inner, float radius, int threads, int device, void* stream) {
   SweepConsts c;
   for (int d = 0; d < 3; ++d) {
     c.h[d] = consts[d];
@@ -221,6 +265,7 @@ extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
   }
   c.iso = iso;
   c.n_inner = n_inner;
+  c.radius = radius;
   int max_plane = n1 * n2;
   if (n0 * n2 > max_plane) max_plane = n0 * n2;
   if (n0 * n1 > max_plane) max_plane = n0 * n1;
@@ -228,10 +273,36 @@ extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      sweep3d_cycle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sweep3d_cycle_kernel<kSeeded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep3d_cycle_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  sweep3d_cycle_kernel<kSeeded><<<B, threads, smem, (cudaStream_t)stream>>>(
       T, S, F, done, n0, n1, n2, c);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entries, loaded with ctypes: K1 (floor field F, (B, n0, n1, n2)) and K7
+// (seed scalars, (B, 4) rows (a, b, c, s_src), and the seed radius).
+// `consts` is a host array of 9 floats (h[3], hh[3], w[3]). Each launches
+// on `stream` of `device` and returns the CUDA error code of the set-up
+// calls or of cudaGetLastError() after the launch (0 = launched). Neither
+// synchronises.
+extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
+                             const uint8_t* done, int B, int n0, int n1,
+                             int n2, const float* consts, int iso, int n_inner,
+                             int threads, int device, void* stream) {
+  return launch<false>(T, S, F, done, B, n0, n1, n2, consts, iso, n_inner,
+                       0.0f, threads, device, stream);
+}
+
+extern "C" int sweep3d_seeded_cycle(float* T, const float* S,
+                                    const float* scal, const uint8_t* done,
+                                    int B, int n0, int n1, int n2,
+                                    const float* consts, int iso, int n_inner,
+                                    float radius, int threads, int device,
+                                    void* stream) {
+  return launch<true>(T, S, scal, done, B, n0, n1, n2, consts, iso, n_inner,
+                      radius, threads, device, stream);
 }

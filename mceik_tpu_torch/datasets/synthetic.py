@@ -4,7 +4,7 @@ and its volume-acquisition variant) and the joint events problems
 (config 3).
 
 Counterpart of ``mceik_tpu/datasets/synthetic.py`` (the file and csv
-datasets are a later slice). Geometries and event truths come from numpy's
+datasets are not ported yet). Geometries and event truths come from numpy's
 ``default_rng`` with the reference's seeds, so they equal the JAX
 package's. The noise comes from a CPU ``torch.Generator`` seeded as the
 reference seeds its key (``data.seed``, ``data.seed + 2`` for events), so a
@@ -235,5 +235,6 @@ def make_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
         return data, {"slowness": s_true, "hypo": hypo, "t0": t0}
     if dcfg.dataset in ("file", "csv"):
         raise NotImplementedError(
-            f"dataset {dcfg.dataset!r} is slice 6 of the port")
+            f"dataset {dcfg.dataset!r}: file and csv datasets are not "
+            "ported yet")
     raise ValueError(f"unknown dataset {dcfg.dataset!r}")

@@ -20,6 +20,9 @@ largest chain count whose gradient leaves 10 GB of the card's memory free
 (memory is affine in the chain count); ``--steps 0`` stops there. Config
 5: ``configs/c5_pod_nuts.json --grad-chains 8,16 --steps 0``, then its
 NUTS with ``sampler.n_chains=4 sampler.max_tree_depth=3 --warm 4 --steps 2``.
+Config 1 under NUTS (2-D gradients through K3 and K6):
+``configs/c1_crosswell.json sampler.algorithm=nuts sampler.thin=1 --warm 100
+--steps 20``.
 
 For an SMC config (``configs/c4_smc.json``) a step is one stage of the
 ladder (``samplers.smc.stage``: the next beta, reweight and resample, the
@@ -98,9 +101,11 @@ def _traced(fn, path):
 def _kernels():
     from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
     return {"sweep3d_cycle": cuda_sweep.SWEEP3D,
+            "sweep3d_seeded_cycle": cuda_sweep.SWEEP3D_SEEDED,
             "transport3d_cycle": cuda_transport.TRANSPORT3D,
             "transport3d_large_cycle": cuda_transport.TRANSPORT3D_LARGE,
-            "sweep2d_cycle": cuda_sweep.SWEEP2D}
+            "sweep2d_cycle": cuda_sweep.SWEEP2D,
+            "transport2d_cycle": cuda_transport.TRANSPORT2D}
 
 
 def _profile_gradients(post, gen, chain_counts):

@@ -1,1 +1,1 @@
-"""Particle resampling (one device; the collectives are slice 7)."""
+"""Particle resampling (one device; the collectives are not ported yet)."""

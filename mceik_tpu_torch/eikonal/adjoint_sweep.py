@@ -15,9 +15,10 @@ bidirectional plane Gauss-Seidel sweeps over every axis, which converge in
 a few cycles as the forward sweeps do.
 
 The plain cycle here (:func:`transport_cycle_plain`) is the solve the port
-runs on CPU tensors and the reference the CUDA kernel K4
-(``eikonal/cuda_transport.py``, ``csrc/transport3d.cu``) is held against on
-the card; the two sum in the same order. The reference's ``custom_vmap``
+runs on CPU tensors and the reference the CUDA kernels K4/K5 (3-D batches,
+``eikonal/cuda_transport.py``, ``csrc/transport3d.cu``) and K6 (2-D
+batches, ``eikonal/cuda_transport2d.py``, ``csrc/transport2d.cu``) are held
+against on the card; they sum in the same order. The reference's ``custom_vmap``
 boundary, lane packing and ``lax.map`` chunking are TPU workarounds and
 have no counterpart.
 """
@@ -29,7 +30,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from mceik_tpu_torch.eikonal.godunov import local_solve, neighbor_min, shift_filled
-from mceik_tpu_torch.eikonal.solve import on_active_fields, seed_source
+from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, on_active_fields,
+                                           seed_source)
 from mceik_tpu_torch.grid import Grid
 
 # A cycle residual above this multiple of the first cycle's marks the
@@ -141,7 +143,8 @@ def transport_cycle_plain(lam, g, wsigned, n_inner: int,
                           done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One full transport cycle (both directions along every axis) on the
     fields whose ``done`` flag is clear; done fields come back unchanged.
-    This is the plain version of the CUDA kernel ``csrc/transport3d.cu``."""
+    This is the plain version of the CUDA kernels ``csrc/transport3d.cu``
+    (3-D batches) and ``csrc/transport2d.cu`` (2-D batches)."""
 
     def cycle(la, ga, wa):
         for axis in range(lam.ndim - 1):
@@ -156,18 +159,23 @@ TransportCycleFn = Callable[..., torch.Tensor]
 
 def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
                     tol: float, max_cycles: int, n_inner: int = 2,
-                    cycle: TransportCycleFn = transport_cycle_plain) -> torch.Tensor:
+                    cycle: TransportCycleFn = transport_cycle_plain,
+                    cycles_per_iter: int = 1) -> torch.Tensor:
     """Solve ``lam = W^T lam + g`` for every field of the batch ``g`` by
     sweep cycles, each field on its own (what ``vmap`` of the reference's
     ``_flagged_cycle_loop`` gives).
 
-    A field stops once ``max|Delta lam| <= tol * (1e-3 + max|g_field|)``. It
-    is diverged when a cycle's residual is non-finite or exceeds
-    ``DIVERGENCE_FACTOR`` times its first cycle's; it then stops, and it
-    alone comes back filled with NaN, so that the NaN reaches the sampler
-    (which rejects) instead of a silently wrong gradient. ``cycle`` is
-    :func:`transport_cycle_plain` or the CUDA kernel's wrapper; both take
-    ``(lam, g, wsigned, n_inner, done)``. One host sync per cycle.
+    One counted iteration runs ``cycles_per_iter`` cycles (2 on the blocked
+    route, as the reference's block cycle is an ascending and a descending
+    pass) with the done flags taken before them; the residual is
+    ``max|Delta lam|`` over the iteration. A field stops once its residual
+    is ``<= tol * (1e-3 + max|g_field|)``. It is diverged when a residual is
+    non-finite or exceeds ``DIVERGENCE_FACTOR`` times its first
+    iteration's; it then stops, and it alone comes back filled with NaN, so
+    that the NaN reaches the sampler (which rejects) instead of a silently
+    wrong gradient. ``cycle`` is :func:`transport_cycle_plain` or a CUDA
+    kernel's wrapper; both take ``(lam, g, wsigned, n_inner, done)``. One
+    host sync per iteration.
     """
     B = g.shape[0]
     dev = g.device
@@ -178,7 +186,9 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
     diverged = torch.zeros(B, dtype=torch.bool, device=dev)
     d0 = torch.zeros(B, dtype=torch.float32, device=dev)
     for it in range(max_cycles):
-        lam_new = cycle(lam, g, wsigned, n_inner, done)
+        lam_new = lam
+        for _ in range(cycles_per_iter):
+            lam_new = cycle(lam_new, g, wsigned, n_inner, done)
         delta = (lam_new - lam).abs().flatten(1).amax(1)
         if it == 0:
             d0 = delta
@@ -194,28 +204,39 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
                        torch.full_like(lam, float("nan")), lam)
 
 
+def batch_weights(T: torch.Tensor, s_b: torch.Tensor, srcs: torch.Tensor,
+                  grid: Grid, seed_radius: float) -> Tuple[torch.Tensor, ...]:
+    """:func:`transport_weights` of a converged batch ``T`` whose frozen
+    seed masks are re-derived from the ``(B, D)`` solve origins ``srcs``,
+    in chunks of fields (:func:`field_chunks`)."""
+    ws = tuple(torch.empty_like(T) for _ in range(grid.ndim))
+    for c in field_chunks(T.shape[0], T[0].numel()):
+        _, frozen = seed_source(s_b[c], srcs[c], grid, seed_radius)
+        for w, w_c in zip(ws, transport_weights(T[c], s_b[c], frozen,
+                                                grid.spacing)):
+            w[c] = w_c
+    return ws
+
+
 def transport_solve_batched(g: torch.Tensor, T: torch.Tensor, s_b: torch.Tensor,
-                            srcs: torch.Tensor, grid: Grid, config) -> torch.Tensor:
+                            srcs: torch.Tensor, grid: Grid, config,
+                            impl: str) -> torch.Tensor:
     """Flat-batch adjoint transport solve used by the implicit VJP.
 
     ``g``: cotangent fields ``(B,) + grid``; ``T``: the converged
     traveltimes; ``s_b``: per-field slowness; ``srcs``: ``(B, D)`` solve
-    origins, from which the frozen seed masks are re-derived. The weights
-    are taken in chunks of fields (:func:`field_chunks`). CUDA tensors go to
-    the kernel (K4, or K5 where K4's planes do not fit) and CPU tensors to
-    the plain cycle, unless ``config.use_pallas == "off"`` asks for the
-    plain cycle on any device.
+    origins (:func:`batch_weights`). ``impl`` is the forward solve's route
+    (``solve.solve_route``): ``"xla"`` takes the plain cycle, every other
+    route the CUDA kernel for CUDA tensors (K4 or K5 for 3-D fields, K6 for
+    2-D ones) and the plain cycle for CPU tensors, with the route's cycles
+    per iteration (two on ``"blocked"``).
     """
-    # K4's module imports this one for the plain cycle.
+    # The kernels' modules import this one for the plain cycle.
     from mceik_tpu_torch.eikonal import cuda_transport
 
-    ws = tuple(torch.empty_like(T) for _ in range(grid.ndim))
-    for c in field_chunks(T.shape[0], T[0].numel()):
-        _, frozen = seed_source(s_b[c], srcs[c], grid, config.seed_radius)
-        for w, w_c in zip(ws, transport_weights(T[c], s_b[c], frozen,
-                                                grid.spacing)):
-            w[c] = w_c
-    cycle = (transport_cycle_plain if config.use_pallas == "off"
+    ws = batch_weights(T, s_b, srcs, grid, config.seed_radius)
+    cycle = (transport_cycle_plain if impl == "xla"
              else cuda_transport.transport_cycle)
     return transport_solve(g.contiguous(), ws, config.tol, config.max_iters,
-                           config.n_inner, cycle=cycle)
+                           config.n_inner, cycle=cycle,
+                           cycles_per_iter=CYCLES_PER_ITER[impl])

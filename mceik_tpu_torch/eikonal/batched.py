@@ -9,39 +9,53 @@ the TPU backend.
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
 from mceik_tpu_torch.eikonal import cuda_sweep
-from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                           seed_source, sweep_cycle_plain,
-                                           sweep_solve)
+from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
+                                           seed_floor, seed_source,
+                                           solve_route, source_scalars,
+                                           sweep_cycle_plain, sweep_solve)
 from mceik_tpu_torch.grid import Grid
 
 
 def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
                           grid: Grid,
-                          config: EikonalConfig = EikonalConfig()) -> torch.Tensor:
+                          config: EikonalConfig = EikonalConfig(),
+                          impl: Optional[str] = None) -> torch.Tensor:
     """Solve one traveltime field per source.
 
     Args:
       slowness: grid-shaped (shared) or ``(B,) + grid.shape`` (per source).
       srcs: ``(B, D)`` physical source coordinates.
+      impl: the reference's routes, by default ``solve.solve_route``'s
+        choice from ``config.use_pallas`` and the field size:
+        ``"field"`` sweeps CUDA tensors with the CUDA kernel (K1 on a 3-D
+        grid, K3 on a 2-D one), one cycle per iteration; ``"blocked"``
+        does the same with two cycles per iteration (the reference's count
+        on fields above 2 MB); ``"gridbatch"`` sweeps a 3-D batch with K7,
+        which rebuilds the seed floor from four scalars per field instead
+        of reading a floor field; ``"xla"`` is the plain sweep. CPU tensors
+        take each route's plain version.
 
-    Returns ``(B,) + grid.shape`` fp32 traveltimes. CUDA tensors are swept
-    by the CUDA kernel (K1 on a 3-D grid, K3 on a 2-D one) and CPU tensors
-    by the plain sweep, unless
-    ``config.use_pallas == "off"`` asks for the plain sweep on any device.
+    Returns ``(B,) + grid.shape`` fp32 traveltimes.
     """
     if config.method != "sweep":
         raise NotImplementedError(
             f"eikonal method {config.method!r}: the port runs 'sweep' only "
-            "(the Jacobi solve is a later slice)")
-    if config.use_pallas == "interpret":
-        raise ValueError("use_pallas='interpret' is a Pallas mode; the port "
-                         "takes 'auto', 'on' or 'off'")
-    if config.use_pallas not in ("auto", "on", "off"):
-        raise ValueError(f"unknown use_pallas {config.use_pallas!r}")
+            "(the Jacobi solve is not ported yet)")
     s = torch.as_tensor(slowness, dtype=torch.float32)
+    if impl is None:
+        impl = solve_route(grid.shape, config.use_pallas, s.device)
+    if impl not in CYCLES_PER_ITER:
+        raise ValueError(f"unknown impl {impl!r}: the port takes "
+                         f"{', '.join(CYCLES_PER_ITER)}")
+    if impl == "gridbatch" and grid.ndim != 3:
+        raise ValueError("impl='gridbatch' is 3-D only (2-D fields take the "
+                         "'field' route through K3)")
     B = srcs.shape[0]
     if s.ndim == grid.ndim:
         s = s.expand((B,) + grid.shape)
@@ -50,8 +64,15 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
                          f"{grid.shape}")
     s = s.contiguous()
     T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
-    floor = seed_floor(T0, frozen)
-    cycle = (sweep_cycle_plain if config.use_pallas == "off"
-             else cuda_sweep.sweep_cycle)
+    if impl == "gridbatch":
+        src_idx, s_src = source_scalars(s, srcs, grid)
+        floor = torch.cat([src_idx, s_src], dim=1).contiguous()
+        cycle = functools.partial(cuda_sweep.seeded_cycle,
+                                  seed_radius=config.seed_radius)
+    else:
+        floor = seed_floor(T0, frozen)
+        cycle = (sweep_cycle_plain if impl == "xla"
+                 else cuda_sweep.sweep_cycle)
     return sweep_solve(T0, floor, s, grid.spacing, config.tol,
-                       config.max_iters, config.n_inner, cycle=cycle)
+                       config.max_iters, config.n_inner, cycle=cycle,
+                       cycles_per_iter=CYCLES_PER_ITER[impl])

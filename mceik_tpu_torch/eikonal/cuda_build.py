@@ -59,7 +59,7 @@ def plane_limit(n_planes: int) -> str:
     side = math.isqrt(nodes)
     return (f"{n_planes} fp32 planes fit cross-sections of at most {nodes} "
             f"nodes ({side}^2 but not {side + 1}^2); a larger one needs a "
-            "thread-block-cluster kernel, a later slice of the port")
+            "thread-block-cluster kernel, later work")
 
 
 def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int],

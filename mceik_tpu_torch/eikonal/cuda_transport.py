@@ -1,5 +1,7 @@
 """CUDA transport kernels K4 and K5: bind and launch the two entry points of
-``csrc/transport3d.cu``.
+``csrc/transport3d.cu``; and the transport-cycle dispatch of every batch to
+its kernel (K4 or K5 for 3-D fields, K6, ``eikonal/cuda_transport2d.py``,
+for 2-D fields).
 
 Counterpart of ``mceik_tpu/eikonal/pallas_transport.py``. One launch runs
 one full adjoint transport cycle (axes 0, 1, 2, each forward then backward)
@@ -32,6 +34,7 @@ from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
                                                 NvccKernel, check_fields,
                                                 done_flags, launch_config,
                                                 plane_limit, plane_smem)
+from mceik_tpu_torch.eikonal.cuda_transport2d import TRANSPORT2D
 
 
 class Transport3dKernel(NvccKernel):
@@ -106,19 +109,22 @@ def transport_cycle(lam: torch.Tensor, g: torch.Tensor,
                     kernel: Optional[Transport3dKernel] = None) -> torch.Tensor:
     """One full transport cycle on the fields whose ``done`` flag is clear.
 
-    CUDA tensors go to ``kernel`` (by default :func:`transport_kernel_for`
-    the grid; pass ``TRANSPORT3D_LARGE`` to run K5 on any shape); CPU
-    tensors to the plain version (``adjoint_sweep.transport_cycle_plain``).
-    Any other device raises.
+    CUDA tensors go to K6 for a ``(B, n0, n1)`` batch and for a
+    ``(B, nx, ny, nz)`` one to ``kernel`` (by default
+    :func:`transport_kernel_for` the grid; pass ``TRANSPORT3D_LARGE`` to run
+    K5 on any shape); CPU tensors to the plain version
+    (``adjoint_sweep.transport_cycle_plain``). ``kernel`` names a 3-D
+    kernel: given with a 2-D batch it raises ValueError, as does any other
+    device.
     """
+    if kernel is not None and lam.ndim == 3:
+        raise ValueError(f"kernel {kernel.symbol} is a 3-D transport; a "
+                         f"(B, n0, n1) batch {tuple(lam.shape)} takes K6")
     if lam.device.type == "cpu":
         return transport_cycle_plain(lam, g, wsigned, n_inner, done)
     if lam.device.type == "cuda":
-        if lam.ndim != 4:
-            raise NotImplementedError(
-                "2-D transport on CUDA needs a 2-D transport kernel, which "
-                "is a later slice of the port (the reference's own packed "
-                "transport route raises on 2-D batches)")
+        if lam.ndim == 3:
+            return TRANSPORT2D(lam, g, wsigned, n_inner, done)
         if kernel is None:
             kernel = transport_kernel_for(lam.shape[1:])
         return kernel(lam, g, wsigned, n_inner, done)

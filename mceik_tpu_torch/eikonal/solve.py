@@ -14,11 +14,21 @@ Jacobi steps ``T = max(min(T, local_solve(a)), floor)``. ``floor`` is the
 seed value on the frozen seed ball and 0 elsewhere: the monotone update can
 only push a seeded node below its seed, and traveltimes are >= 0, so the
 max restores frozen nodes exactly as ``where(frozen, T0, T)`` does.
+
+Routes. The reference picks its solve by field size and by whether its
+kernels are on (``mceik_tpu/forward/predict.py:37-76``); :func:`solve_route`
+makes the same choice, and :data:`CYCLES_PER_ITER` says how many
+whole-field cycles each route's counted iteration runs. On the blocked
+route (fields above 2 MB, e.g. 128^3) one reference iteration is an
+ascending and then a descending pass over axis-0 blocks, each block a full
+cycle: two whole-field cycles of work per iteration, so the port runs two
+(pallas_sweep.py:1027-1033, pallas_transport.py:238-244).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -37,9 +47,9 @@ class EikonalConfig:
       max_iters: bound on sweep cycles.
       n_inner: in-plane Jacobi micro-iterations per plane update.
       seed_radius: source seed ball radius, in units of max grid spacing.
-      use_pallas: "auto"/"on" (CUDA kernel for CUDA tensors, plain sweep
-        for CPU tensors), "off" (plain sweep everywhere); "interpret" is
-        refused.
+      use_pallas: "auto" ("on" for CUDA tensors, "off" for CPU tensors),
+        "on" (the kernels' routes, :func:`solve_route`), "off" (the plain
+        sweep, one cycle per iteration); "interpret" is refused.
     """
 
     method: str = "sweep"
@@ -48,6 +58,50 @@ class EikonalConfig:
     n_inner: int = 2
     seed_radius: float = 3.0
     use_pallas: str = "auto"
+
+
+# The reference's whole-field limit (``MAX_VMEM_FIELD_BYTES``,
+# pallas_sweep.py:46): larger fields take its blocked route.
+MAX_FIELD_BYTES = 2 * 1024 * 1024
+# Whole-field cycles per counted iteration of each route.
+CYCLES_PER_ITER = {"field": 1, "gridbatch": 1, "blocked": 2, "xla": 1}
+
+
+def solve_route(shape: Sequence[int], use_pallas: str, device) -> str:
+    """The reference's route for fields of ``shape`` on ``device``:
+    ``"auto"`` is ``"on"`` for CUDA and ``"off"`` for the CPU; ``"on"``
+    takes ``"field"`` up to :data:`MAX_FIELD_BYTES` of fp32 per field and
+    ``"blocked"`` above; ``"off"`` takes ``"xla"``, the plain cycle."""
+    if use_pallas == "interpret":
+        raise ValueError("use_pallas='interpret' is a Pallas mode; the port "
+                         "takes 'auto', 'on' or 'off'")
+    if use_pallas == "auto":
+        use_pallas = "on" if torch.device(device).type == "cuda" else "off"
+    if use_pallas == "on":
+        return ("field" if 4 * math.prod(shape) <= MAX_FIELD_BYTES
+                else "blocked")
+    if use_pallas == "off":
+        return "xla"
+    raise ValueError(f"unknown use_pallas {use_pallas!r}")
+
+
+def _seed_distance(src_idx: torch.Tensor, shape: Sequence[int],
+                   spacing: Sequence[float]) -> torch.Tensor:
+    """``sqrt(d2 + 1e-12)`` from each source's fractional index coords
+    ``(B, D)`` to every node, ``(B,) + shape``, the squared terms summed in
+    the grid's axis order (the order the kernels sum in)."""
+    B, D = src_idx.shape
+    dist2 = None
+    for d in range(D):
+        view = [1] * (D + 1)
+        view[d + 1] = shape[d]
+        idx_d = torch.arange(shape[d], dtype=src_idx.dtype,
+                             device=src_idx.device).reshape(view)
+        src_d = src_idx[:, d].reshape((B,) + (1,) * D)
+        term = ((idx_d - src_d) * spacing[d]) ** 2
+        dist2 = term if dist2 is None else dist2 + term
+    # Tiny floor: sqrt'(0) = inf would NaN source-position gradients.
+    return torch.sqrt(dist2 + 1e-12)
 
 
 def seed_source(slowness: torch.Tensor, src_xyz: torch.Tensor, grid: Grid,
@@ -66,33 +120,43 @@ def seed_source(slowness: torch.Tensor, src_xyz: torch.Tensor, grid: Grid,
     """
     B = slowness.shape[0]
     D = grid.ndim
-    src_xyz = torch.as_tensor(src_xyz, dtype=slowness.dtype,
-                              device=slowness.device)
-    src_idx = grid.to_index_coords(src_xyz)  # (B, D)
-    h = grid.spacing
-    dist2 = None
-    for d in range(D):
-        shape = [1] * (D + 1)
-        shape[d + 1] = grid.shape[d]
-        idx_d = torch.arange(grid.shape[d], dtype=slowness.dtype,
-                             device=slowness.device).reshape(shape)
-        src_d = src_idx[:, d].reshape((B,) + (1,) * D)
-        term = ((idx_d - src_d) * h[d]) ** 2
-        dist2 = term if dist2 is None else dist2 + term
-    # Tiny floor: sqrt'(0) = inf would NaN source-position gradients.
-    dist = torch.sqrt(dist2 + 1e-12)
-    radius = seed_radius * max(h)
-
-    s_src = sample_linear(slowness, src_idx[:, None, :])  # (B, 1)
-    mask = dist <= radius
+    src_idx, s_src = source_scalars(slowness, src_xyz, grid)
+    dist = _seed_distance(src_idx, grid.shape, grid.spacing)
+    mask = dist <= seed_radius * max(grid.spacing)
     T0 = torch.where(mask, s_src.reshape((B,) + (1,) * D) * dist,
                      torch.full_like(dist, BIG))
     return T0, mask
 
 
+def source_scalars(slowness: torch.Tensor, src_xyz: torch.Tensor,
+                   grid: Grid):
+    """Each source's fractional index coords ``(B, D)`` and the slowness
+    there, ``(B, 1)`` (``map_coordinates(order=1)``, as the seed takes
+    it)."""
+    src_xyz = torch.as_tensor(src_xyz, dtype=slowness.dtype,
+                              device=slowness.device)
+    src_idx = grid.to_index_coords(src_xyz)
+    return src_idx, sample_linear(slowness, src_idx[:, None, :])
+
+
 def seed_floor(T0: torch.Tensor, frozen: torch.Tensor) -> torch.Tensor:
     """The floor operand: T0 on frozen seed nodes, 0 elsewhere."""
     return torch.where(frozen, T0, torch.zeros_like(T0))
+
+
+def seeded_floor_plain(scal: torch.Tensor, shape: Sequence[int],
+                       spacing: Sequence[float],
+                       seed_radius: float) -> torch.Tensor:
+    """The floor rebuilt from ``(B, 4)`` rows ``(a, b, c, s_src)`` (source
+    index coords and slowness, :func:`source_scalars`): ``s_src * dist``
+    where ``dist <= seed_radius * max(h)``, else 0. The same operations as
+    ``seed_floor(*seed_source(...))``, so the same bits. The plain version
+    of the floor the CUDA kernel K7 computes in place of a floor operand."""
+    D = len(shape)
+    dist = _seed_distance(scal[:, :D], shape, spacing)
+    s_src = scal[:, D].reshape((-1,) + (1,) * D)
+    return torch.where(dist <= seed_radius * max(spacing), s_src * dist,
+                       torch.zeros_like(dist))
 
 
 def _sweep_one_direction(T, floor, s, spacing: Sequence[float], axis: int,
@@ -161,24 +225,40 @@ def sweep_cycle_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
     return on_active_fields(cycle, done, T, s, floor)
 
 
+def sweep_seeded_cycle_plain(T, s, scal, spacing: Sequence[float],
+                             n_inner: int, done: Optional[torch.Tensor] = None,
+                             *, seed_radius: float) -> torch.Tensor:
+    """One cycle with the floor rebuilt from the ``(B, 4)`` source scalars
+    (:func:`seeded_floor_plain`), then :func:`sweep_cycle_plain`: the plain
+    version of the CUDA kernel K7 (``csrc/sweep3d.cu``'s seeded entry)."""
+    floor = seeded_floor_plain(scal, T.shape[1:], spacing, seed_radius)
+    return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
+
+
 CycleFn = Callable[..., torch.Tensor]
 
 
 def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
                 max_cycles: int, n_inner: int,
-                cycle: CycleFn = sweep_cycle_plain) -> torch.Tensor:
+                cycle: CycleFn = sweep_cycle_plain,
+                cycles_per_iter: int = 1) -> torch.Tensor:
     """Fixed-point iteration of sweep cycles with PER-FIELD convergence.
 
-    A field is done once its ``max|T_new - T| <= tol`` and is not swept
-    again (what ``vmap`` of the reference's ``while_loop`` gives); the loop
-    ends when every field is done or after ``max_cycles``. ``cycle`` is
-    :func:`sweep_cycle_plain` or the CUDA kernel's wrapper; both take
-    ``(T, s, floor, spacing, n_inner, done)``. One host sync per cycle.
+    One counted iteration runs ``cycles_per_iter`` cycles (2 on the blocked
+    route, :data:`CYCLES_PER_ITER`) with the done flags taken before them.
+    A field is done once its ``max|T_after - T_before| <= tol`` over the
+    iteration and is not swept again (what ``vmap`` of the reference's
+    ``while_loop`` gives); the loop ends when every field is done or after
+    ``max_cycles`` iterations. ``cycle`` is :func:`sweep_cycle_plain` or a
+    CUDA kernel's wrapper; both take ``(T, s, floor, spacing, n_inner,
+    done)``. One host sync per iteration.
     """
     T = T0
     done = torch.zeros(T0.shape[0], dtype=torch.bool, device=T0.device)
     for _ in range(max_cycles):
-        T_new = cycle(T, s, floor, spacing, n_inner, done)
+        T_new = T
+        for _ in range(cycles_per_iter):
+            T_new = cycle(T_new, s, floor, spacing, n_inner, done)
         delta = (T_new - T).abs().flatten(1).amax(dim=1)
         done = done | ~(delta > tol)
         T = T_new

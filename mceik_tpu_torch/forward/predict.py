@@ -5,11 +5,12 @@ the slowness is carried through: every chain's tables go into ONE batched
 solve of ``chains x table points`` fields. With ``differentiable=True`` the
 solve is the implicit-adjoint one (``eikonal/adjoint.py``), so gradients
 reach the slowness; interpolation gradients (to the tables and to event
-positions) flow through ``grid.sample_linear``'s autograd. The reference
-chooses its Pallas route by field size here (whole-field VMEM kernels up to
-2 MB, axis-0 blocks above, e.g. at 128^3); the port's kernels march whole
-fields at every size they take (K1 and K4/K5, up to 139^2 cross-sections),
-so there is no choice to make.
+positions) flow through ``grid.sample_linear``'s autograd. The route is
+chosen here as the reference chooses it (``solve.solve_route``): with the
+kernels on, whole-field solves up to 2 MB per field and the blocked route's
+count above (two whole-field cycles per iteration, e.g. at 128^3); with
+them off, the plain cycle. The forward solve and its transport take the
+same route.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from mceik_tpu_torch.eikonal.adjoint import solve_eikonal_diff_batched
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
-from mceik_tpu_torch.eikonal.solve import EikonalConfig
+from mceik_tpu_torch.eikonal.solve import EikonalConfig, solve_route
 from mceik_tpu_torch.grid import Grid, sample_linear
 
 
@@ -38,9 +39,13 @@ def traveltime_tables(slowness: torch.Tensor, table_xyz: torch.Tensor,
     C, n_tab = s.shape[0], table_xyz.shape[0]
     s_b = s.unsqueeze(1).expand((C, n_tab) + grid.shape)
     srcs = table_xyz.unsqueeze(0).expand(C, n_tab, grid.ndim)
-    solve = solve_eikonal_diff_batched if differentiable else solve_eikonal_batched
-    T = solve(s_b.reshape((C * n_tab,) + grid.shape),
-              srcs.reshape(C * n_tab, grid.ndim), grid, config)
+    impl = solve_route(grid.shape, config.use_pallas, s.device)
+    s_b = s_b.reshape((C * n_tab,) + grid.shape)
+    srcs = srcs.reshape(C * n_tab, grid.ndim)
+    if differentiable:
+        T = solve_eikonal_diff_batched(s_b, srcs, grid, config, impl=impl)
+    else:
+        T = solve_eikonal_batched(s_b, srcs, grid, config, impl)
     return T.reshape(lead + (n_tab,) + grid.shape)
 
 

@@ -112,7 +112,7 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
     implicit adjoint, for the gradient samplers and the Laplace fit."""
     if cfg.mode not in ("tomo", "joint"):
         raise NotImplementedError(
-            f"model mode {cfg.mode!r}: locate mode is slice 6 of the port")
+            f"model mode {cfg.mode!r}: locate mode is not ported yet")
     noise_model = cfg.resolved_noise_model()
     if noise_model not in ("fixed", "hierarchical", "spike_slab"):
         raise ValueError(f"unknown noise_model {noise_model!r}")

@@ -16,8 +16,8 @@ particles x 8 sources = 80,000 fields in one solve. The log-evidence estimate
 :func:`mutate` and :func:`reweight_resample` take their random draws as
 tensors, as the MCMC kernels do, so a test can replay JAX's draws. As in the
 reference, beta and its increments enter the device arithmetic in fp32.
-Sharding the population (a ``mesh``) is slice 7 of the port; checkpoints and
-resume are slice 6.
+Sharding the population (a ``mesh``), checkpoints and resume are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -190,10 +190,10 @@ def run_smc(posterior, gen: torch.Generator, n_particles: int,
     device)."""
     if mesh is not None:
         raise NotImplementedError("sharding SMC particles over a mesh is "
-                                  "slice 7 of the port")
+                                  "not ported yet")
     if checkpoint_path or resume:
-        raise NotImplementedError("SMC checkpoints and resume are slice 6 "
-                                  "of the port")
+        raise NotImplementedError("SMC checkpoints and resume are not "
+                                  "ported yet")
     state = init_particles(posterior, gen, n_particles, step_size)
     betas, ess_hist, acc_hist, seconds = [0.0], [float(n_particles)], [], []
     log_z, beta, n_stages = 0.0, 0.0, 0

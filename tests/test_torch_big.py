@@ -7,7 +7,11 @@ same for the adjoint transport). The port marches whole fields (K1 and the
 transport kernel K5 on the card), so its fixed points are the unblocked
 ones: here the port's plain solves are held against JAX's blocked solves in
 interpret mode with forced multi-block partitioning, at the reference's
-own bars. Then the choice between K4 and K5 by shape, the shared-memory
+own bars. The reference counts one blocked iteration as two whole-field
+cycles of work (an ascending and a descending pass over the blocks), and so
+does the port on that route: its pair-counted solves are held against the
+blocked ones at equal iteration counts, and the route choice by field size
+is checked. Then the choice between K4 and K5 by shape, the shared-memory
 limits in the kernels' messages, and the launch shape at 128^3, none of
 which needs a card. Inputs are made with numpy from seeds."""
 
@@ -15,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mceik_tpu.eikonal.adjoint_sweep import transport_weights as j_weights
@@ -25,12 +30,17 @@ from mceik_tpu.eikonal.solve import seed_source as j_seed_source
 from mceik_tpu.eikonal.solve import solve_eikonal as j_solve_eikonal
 from mceik_tpu.grid import Grid as JGrid
 
-from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
-from mceik_tpu_torch.eikonal.adjoint_sweep import transport_solve
+from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport, solve
+from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
+                                                   transport_solve,
+                                                   transport_weights)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.cuda_build import (MAX_SMEM_BYTES, launch_threads,
                                                 plane_limit, plane_smem)
-from mceik_tpu_torch.eikonal.solve import EikonalConfig
+from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
+                                           seed_floor, seed_source,
+                                           solve_route, sweep_solve)
+from mceik_tpu_torch.forward.predict import traveltime_tables
 from mceik_tpu_torch.grid import Grid
 
 
@@ -86,6 +96,147 @@ def test_plain_transport_matches_jax_blocked_transport():
                           tol=1e-7, max_cycles=60, n_inner=2)
     assert np.isfinite(lam_blk).all()
     np.testing.assert_allclose(lam[0].numpy(), lam_blk, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def blocked_runs():
+    """The re-anchor's problem on 128x32x32: one source, slowness
+    exp(0.2 N(0, 1)) on a 16^3 basis upsampled trilinearly, n_inner 2, tol
+    1e-3 (forward) and 1e-7 (transport, on the converged field's weights
+    with a random cotangent). For k in {3, 5} iterations: the port's solves
+    counting two whole-field cycles per iteration (the blocked route's
+    count) and JAX's blocked solves (8 axis-0 blocks, interpret mode); and
+    the port's converged fields. The blocked and whole-field fixed points agree to 2e-3
+    (forward) and 1e-5 (transport) at the bars of the tests above.
+
+    The port's 3-iteration results are read on the way to 5: the field
+    after the sixth cycle of the 5-iteration solve. That is the 3-iteration
+    solve's output exactly when the solve did not stop (converged or
+    diverged) within 3 iterations, which is asserted: it then ran more than
+    six cycles."""
+    shape, sp = (128, 32, 32), (1.0, 1.0, 1.0)
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.standard_normal((1, 1, 16, 16, 16))
+                         .astype(np.float32))
+    s = torch.exp(0.2 * torch.nn.functional.interpolate(
+        u, size=shape, mode="trilinear", align_corners=False))[0]
+    src = torch.tensor([[20.0, 10.0, 12.0]])
+    grid = Grid(shape, sp)
+    T0, frozen = seed_source(s, src, grid, 3.0)
+    fl = seed_floor(T0, frozen)
+    jT0, jfr = j_seed_source(jnp.asarray(s[0].numpy()),
+                             jnp.asarray(src[0].numpy()), JGrid(shape, sp), 3.0)
+    j_fwd = jax.jit(lambda mc: sweep_solve_pallas_blocked(
+        jT0, jfr, jnp.asarray(s[0].numpy()), sp, 1e-3, mc, 2, interpret=True,
+        n_blocks=8))
+    pairs = CYCLES_PER_ITER["blocked"]
+
+    def pair_counted(solve_fn, cycle, *args):
+        """{3: ..., 5: ...}: the 5-iteration solve and its field after
+        3 iterations' cycles."""
+        seen = []
+
+        def rec(*a):
+            seen.append(cycle(*a))
+            return seen[-1]
+
+        at5 = solve_fn(*args, 5, cycle=rec, cycles_per_iter=pairs)[0]
+        assert len(seen) > 3 * pairs
+        return {3: seen[3 * pairs - 1][0], 5: at5}
+
+    out = {"fwd": {}, "tr": {}}
+    fwd = pair_counted(lambda *a, **kw: sweep_solve(*a, 2, **kw),
+                       solve.sweep_cycle_plain, T0, fl, s, sp, 1e-3)
+    for k in (3, 5):
+        out["fwd"][k] = (fwd[k], torch.from_numpy(np.asarray(j_fwd(k))))
+    # Converged, warm-started from the 5-iteration field.
+    T = sweep_solve(out["fwd"][5][0][None], fl, s, sp, 1e-7, 200, 2)
+    out["fwd_conv"] = T[0]
+    ws = transport_weights(T, s, frozen, sp)
+    g = torch.from_numpy((0.1 * rng.standard_normal((1,) + shape))
+                         .astype(np.float32))
+    j_tr = jax.jit(lambda mc: transport_solve_pallas_blocked(
+        jnp.asarray(g[0].numpy()), tuple(jnp.asarray(w[0].numpy()) for w in ws),
+        1e-7, mc, 2, interpret=True, n_blocks=8))
+    tr = pair_counted(transport_solve, transport_cycle_plain, g, ws, 1e-7)
+    for k in (3, 5):
+        out["tr"][k] = (tr[k], torch.from_numpy(np.asarray(j_tr(k))))
+    out["tr_conv"] = transport_solve(g, ws, 1e-7, 200)[0]
+    return out
+
+
+@pytest.mark.parametrize("leg", ["fwd", "tr"])
+@pytest.mark.parametrize("k", [3, 5])
+def test_pair_counted_solves_no_further_than_jax_blocked(blocked_runs, leg, k):
+    """At equal iteration counts k, the port's pair-counted solve (forward
+    sweep, or adjoint transport) is no further from the converged field
+    than JAX's blocked route. Measured on this problem: forward 0.052
+    against the reference's 0.309 at k 3 and 2.3e-5 against 5.8e-3 at k 5
+    (counting one cycle per iteration, as the port did before: 1.63 and
+    0.185); transport 0.079 against 0.571 and 4.8e-7 against 0.0177 (one
+    cycle: 2.63 and 0.611)."""
+    pair, ref = blocked_runs[leg][k]
+    conv = blocked_runs[leg + "_conv"]
+    err = lambda x: float((x - conv).abs().max())
+    assert err(pair) <= err(ref)
+
+
+@pytest.mark.parametrize("shape,use_pallas,device,route", [
+    ((128, 128, 128), "on", "cpu", "blocked"),    # config 5: 8 MB
+    ((128, 128, 128), "auto", "cuda", "blocked"),
+    ((128, 128, 128), "auto", "cpu", "xla"),
+    ((128, 64, 64), "on", "cuda", "field"),        # exactly 2 MiB
+    ((129, 64, 64), "on", "cuda", "blocked"),
+    ((64, 64, 64), "auto", "cuda", "field"),       # config 2
+    ((65, 65), "auto", "cuda", "field"),           # config 1
+    ((64, 64, 64), "off", "cuda", "xla"),
+])
+def test_route_choice_by_field_size(shape, use_pallas, device, route):
+    """The reference's choice (forward/predict.py:37-76): with the kernels
+    on, "field" up to 2 MiB of fp32 per field and "blocked" above; "off"
+    is "xla"; "auto" is "on" for CUDA and "off" for the CPU. A pure
+    function of the shape, no card needed."""
+    assert solve_route(shape, use_pallas, torch.device(device)) == route
+    assert CYCLES_PER_ITER[route] == (2 if route == "blocked" else 1)
+
+
+def test_blocked_route_counts_two_cycles_per_iteration(monkeypatch):
+    """Through the entry points a user calls, on a field made "large" by
+    lowering the limit: ``traveltime_tables`` (differentiable) picks the
+    blocked route with the kernels on, and its forward solve and its
+    transport solve each run two cycles per counted iteration, with the
+    done flags taken before the pair; the result equals the whole-field
+    route's at twice the iterations."""
+    shape = (10, 9, 8)
+    monkeypatch.setattr(solve, "MAX_FIELD_BYTES", 4 * int(np.prod(shape)) - 4)
+    grid = Grid(shape, (1.0, 1.0, 1.0))
+    assert solve_route(shape, "on", "cpu") == "blocked"
+    fwd, tr = [], []
+    sweep_cycle, transport_cycle = (cuda_sweep.sweep_cycle,
+                                    cuda_transport.transport_cycle)
+
+    def rec_sweep(T, s_, f, sp, n, done):
+        fwd.append(done.clone())
+        return sweep_cycle(T, s_, f, sp, n, done)
+
+    def rec_transport(lam, g, ws, n, done):
+        tr.append(done.clone())
+        return transport_cycle(lam, g, ws, n, done)
+
+    monkeypatch.setattr(cuda_sweep, "sweep_cycle", rec_sweep)
+    monkeypatch.setattr(cuda_transport, "transport_cycle", rec_transport)
+    s = torch.from_numpy(_smooth_slowness(shape, 5)).requires_grad_(True)
+    srcs = torch.tensor([[2.0, 3.0, 4.0], [7.0, 1.0, 6.0]])
+    cfg = EikonalConfig(tol=0.0, max_iters=2, use_pallas="on")
+    T = traveltime_tables(s, srcs, grid, cfg, differentiable=True)
+    T.sum().backward()
+    assert len(fwd) == 4 and len(tr) == 4
+    for flags in (fwd, tr):
+        assert all(torch.equal(flags[2 * i], flags[2 * i + 1])
+                   for i in range(2))
+    whole = solve_eikonal_batched(s.detach(), srcs, grid, EikonalConfig(
+        tol=0.0, max_iters=4, use_pallas="off"))
+    assert torch.equal(T.detach(), whole)
 
 
 @pytest.mark.parametrize("grid,kernel", [

@@ -133,12 +133,12 @@ def test_cli_runs_tiny_c2_mala_on_cpu(capsys):
 
 def test_cli_refuses_missing_card_and_later_slices():
     """The default device is cuda: with no card the run fails loudly
-    instead of falling back to the CPU. Features of later slices raise."""
+    instead of falling back to the CPU. Features not ported yet raise."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["run", C2, *TINY])
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["run", C2, *TINY, "model.mode=locate", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["run", C2, *TINY, "io.checkpoint_path=ck.h5",
                   "--device", "cpu"])

@@ -1,7 +1,6 @@
-"""Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1,
-``csrc/transport3d.cu``, K4 and K5, and ``csrc/sweep2d.cu``, K3) against
-their plain
-PyTorch versions. They need an NVIDIA GPU with nvcc and skip elsewhere. This file imports no JAX, so it runs on a machine without
+"""Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1 and
+K7, ``csrc/transport3d.cu``, K4 and K5, ``csrc/sweep2d.cu``, K3, and
+``csrc/transport2d.cu``, K6) against their plain PyTorch versions. They need an NVIDIA GPU with nvcc and skip elsewhere. This file imports no JAX, so it runs on a machine without
 it; there, skip tests/conftest.py (which configures JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -11,14 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from mceik_tpu_torch.eikonal import cuda_sweep, cuda_sweep2d, cuda_transport
+from mceik_tpu_torch.eikonal import (cuda_sweep, cuda_sweep2d, cuda_transport,
+                                     cuda_transport2d)
 from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
                                                    transport_solve,
                                                    transport_weights)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                           seed_source, sweep_cycle_plain,
-                                           sweep_solve)
+                                           seed_source, source_scalars,
+                                           sweep_cycle_plain, sweep_solve)
 from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.model.params import slowness_from_u
 
@@ -331,3 +331,107 @@ def test_kernels_at_128_cube(dev):
     torch.cuda.synchronize()
     assert cuda_transport.TRANSPORT3D_LARGE.launches == launches + 1
     assert torch.equal(lam, transport_cycle_plain(gg, gg, ws, 2))
+
+
+def _transport_batch2d(dev, B, shape, spacing, seed=7):
+    """B converged 2-D fields from K3, their signed weights and random g."""
+    g_, s, srcs, _, _ = _batch2d(dev, B, shape, spacing, seed=seed)
+    T = solve_eikonal_batched(s, srcs, g_, EikonalConfig(tol=1e-5,
+                                                         max_iters=100))
+    _, frozen = seed_source(s, srcs, g_, 3.0)
+    ws = transport_weights(T, s, frozen, g_.spacing)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return ws, 0.1 * torch.randn(T.shape, generator=gen, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,shape,spacing", [
+    (32, (65, 65), (1.0, 1.0)),       # config 1's batch
+    (7, (37, 23), (1.0, 1.25)),       # odd, anisotropic, non-square
+    (3, (119, 119), (1.0, 1.0)),      # the largest square K6 takes
+])
+def test_transport2d_cycle_matches_plain(dev, B, shape, spacing):
+    """One K6 launch equals one plain 2-D transport cycle bit for bit (the
+    same fp32 operations in the same order), and a done field passes
+    through untouched."""
+    ws, g = _transport_batch2d(dev, B, shape, spacing)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    done[1] = True
+    launches = cuda_transport2d.TRANSPORT2D.launches
+    out = cuda_transport.transport_cycle(g, g, ws, 2, done)
+    torch.cuda.synchronize()
+    assert cuda_transport2d.TRANSPORT2D.launches == launches + 1
+    assert torch.equal(out, transport_cycle_plain(g, g, ws, 2, done))
+    assert torch.equal(out[1], g[1])
+    assert float((out[0] - g[0]).abs().max()) > 0.0
+    for n_inner in (1, 3):
+        assert torch.equal(cuda_transport.transport_cycle(g, g, ws, n_inner),
+                           transport_cycle_plain(g, g, ws, n_inner))
+
+
+@pytest.mark.cuda
+def test_transport2d_solve_and_divergence(dev):
+    """A whole 2-D transport solve at tol 1e-7 through K6 equals the plain
+    solve bit for bit; a divergent field appended comes back all NaN."""
+    ws, g = _transport_batch2d(dev, 4, (48, 48), (1.0, 1.0))
+    div = []
+    for d in range(2):
+        idx = torch.arange(48, device=dev).reshape([-1 if e == d else 1
+                                                    for e in range(2)])
+        div.append(torch.where(idx % 2 == 0, -1.3, 1.3).expand(48, 48))
+    wd = tuple(torch.cat([w, dv[None]]).contiguous()
+               for w, dv in zip(ws, div))
+    gd = torch.cat([g, torch.ones_like(g[:1])])
+    launches = cuda_transport2d.TRANSPORT2D.launches
+    out = transport_solve(gd, wd, 1e-7, 100, 2,
+                          cycle=cuda_transport.transport_cycle)
+    assert cuda_transport2d.TRANSPORT2D.launches > launches
+    ref = transport_solve(gd, wd, 1e-7, 100, 2)
+    assert torch.isnan(out[4]).all() and torch.isfinite(out[:4]).all()
+    assert torch.equal(out[:4], ref[:4])
+
+
+@pytest.mark.cuda
+def test_transport2d_wrapper_checks_inputs(dev):
+    k = cuda_transport2d.TRANSPORT2D
+    x = torch.zeros((2, 16, 16), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        k(x.double(), x, (x, x), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k(x, x, (x, x.transpose(1, 2)), 2)
+    with pytest.raises(ValueError, match="120\\^2"):
+        big = torch.zeros((1, 120, 120), device=dev)
+        k(big, big, (big, big), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing", [
+    ((24, 20, 16), (1.0, 1.2, 0.9)),    # weighted local solve, non-cube
+    ((32, 32, 32), (1.0, 1.0, 1.0)),    # closed isotropic form
+])
+def test_seeded_cycle_matches_k1(dev, shape, spacing):
+    """One K7 launch, its seed floor rebuilt from four scalars per field,
+    equals one K1 launch with the ``seed_floor`` operand and the plain
+    cycle bit for bit; a done field passes through; the gridbatch solve
+    equals the field route's."""
+    g, s, srcs, T0, fl = _batch(dev, shape, spacing,
+                                [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                                 [12.5, 17.3, 9.1]])
+    src_idx, s_src = source_scalars(s, srcs, g)
+    scal = torch.cat([src_idx, s_src], dim=1).contiguous()
+    done = torch.tensor([False, True, False], device=dev)
+    launches = cuda_sweep.SWEEP3D_SEEDED.launches
+    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, done,
+                                  seed_radius=3.0)
+    torch.cuda.synchronize()
+    assert cuda_sweep.SWEEP3D_SEEDED.launches == launches + 1
+    assert torch.equal(out, cuda_sweep.SWEEP3D(T0, s, fl, g.spacing, 2, done))
+    assert torch.equal(out, sweep_cycle_plain(T0, s, fl, g.spacing, 2, done))
+    assert torch.equal(out[1], T0[1])
+    cfg = EikonalConfig(tol=1e-5, max_iters=100)
+    assert torch.equal(
+        solve_eikonal_batched(s, srcs, g, cfg, impl="gridbatch"),
+        solve_eikonal_batched(s, srcs, g, cfg, impl="field"))
+    with pytest.raises(ValueError, match="scal"):
+        cuda_sweep.SWEEP3D_SEEDED(T0, s, scal[:, :3].contiguous(), g.spacing,
+                                  2, seed_radius=3.0)

@@ -371,7 +371,7 @@ def test_spike_slab_samplers_pass_the_check(algo):
 
 def test_multihost_runs_as_one_process(monkeypatch):
     """``dist.multihost`` without a launcher warns and runs on one process;
-    several processes or devices are the distribution slice."""
+    several processes or devices are distribution, not ported yet."""
     cfg = load_config(C5)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.warns(UserWarning, match="one process"):
@@ -380,10 +380,10 @@ def test_multihost_runs_as_one_process(monkeypatch):
     with pytest.warns(UserWarning, match="one process"):
         api.check_run_options(cfg)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(NotImplementedError, match="distribution is not ported"):
         api.check_run_options(cfg)
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(NotImplementedError, match="distribution is not ported"):
         api.check_run_options(apply_overrides(cfg, ["dist.n_devices=2"]))
 
 

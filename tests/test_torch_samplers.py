@@ -29,7 +29,7 @@ from mceik_tpu_torch.config import EikonalCfg, ModelCfg
 from mceik_tpu_torch.convert import (am_full_hyper_from_jax,
                                      mala_state_from_jax, params_from_jax,
                                      tomo_data_from_jax)
-from mceik_tpu_torch.eikonal import cuda_transport
+from mceik_tpu_torch.eikonal import adjoint_sweep
 from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.model.posterior import build_posterior, value_and_grad
@@ -252,19 +252,21 @@ def test_nan_lambda_reaches_mala_and_is_rejected(models, monkeypatch):
     lambda with NaN. The NaN must reach the sampler unmasked: chain 1's
     gradient is NaN and only chain 1's, and MALA rejects chain 1 and keeps
     its state, logpost and cached gradient. The state is lifted from a
-    plain MH state by ``from_mh_states``."""
+    plain MH state by ``from_mh_states``. (These CPU tensors take the
+    reference's CPU route, the plain transport cycle, which is where the
+    divergence is made.)"""
     jpost, tpost, _ = models
     u = Params(u=torch.from_numpy(_u(4)))
     state = mala.from_mh_states(tpost.logpost,
                                 MHState(params=u, logpost=tpost.logpost(u)))
-    plain = cuda_transport.transport_cycle
+    plain = adjoint_sweep.transport_cycle_plain
 
     def diverging(lam, g, ws, n_inner, done):
         out = plain(lam, g, ws, n_inner, done)
         out[2] = 100.0 * out[2]
         return out
 
-    monkeypatch.setattr(cuda_transport, "transport_cycle", diverging)
+    monkeypatch.setattr(adjoint_sweep, "transport_cycle_plain", diverging)
     lp, grad = value_and_grad(tpost.logpost)(state.params)
     assert torch.isfinite(lp).all()
     assert torch.isnan(grad.u[1]).all()

@@ -390,9 +390,9 @@ def test_smc_gaussian_moments_and_evidence():
     assert result.n_stages >= 2
     assert min(result.accept_history) > 0.1
     assert len(result.stage_seconds) == result.n_stages
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="mesh is not ported yet"):
         smc.run_smc(TToy(), gen, 64, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="resume are not ported yet"):
         smc.run_smc(TToy(), gen, 64, checkpoint_path="x")
 
 
