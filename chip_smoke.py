@@ -10,16 +10,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build of every kernel on the main paths from the sources in the
    checkout, one ``nvcc`` per source, all started together: K1, the 3-D
-   sweep cycle (``csrc/sweep3d.cu``), K4, the adjoint transport cycle
+   sweep cycle with the seed floor computed in the kernel from four scalars
+   per field (``csrc/sweep3d.cu``; every 3-D route, the gridbatch one
+   included), K4, the adjoint transport cycle
    (``csrc/transport3d.cu``), K3, the 2-D sweep cycle
    (``csrc/sweep2d.cu``), K5, the adjoint transport cycle of fields
    whose planes K4 cannot hold (the second entry point of
    ``csrc/transport3d.cu``, built with K4), K6, the 2-D adjoint transport
-   cycle (``csrc/transport2d.cu``), and K7, the 3-D sweep cycle with the
-   seed floor rebuilt in the kernel (the second entry point of
-   ``csrc/sweep3d.cu``, built with K1);
+   cycle (``csrc/transport2d.cu``);
 3. K1 against its plain PyTorch version on the card, at the main path's
-   shapes and on edge cases (bar: max abs traveltime difference <= 1e-4);
+   shapes and on edge cases (bar: bit for bit, ``torch.equal``, one cycle
+   against ``sweep_seeded_cycle_plain`` and whole solves against the plain
+   route's);
 4. K4 against its plain version (bar: max abs difference <= 1e-5 of the
    plain version's max abs): the main-path batch (16 chains x 8 sources of
    64^3, cotangents of the config-2 log-likelihood), an odd anisotropic
@@ -59,7 +61,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 11. K1 and K4 at config 3's batch, 8 prior-drawn chains x 16 surface
    stations = 128 fields of 48x48x32 (the non-cube route whose TPU cycle is
    ``sweep_axes01_fused`` + ``sweep_axis0``): K1 one cycle and a solve at
-   the config's tol against the plain versions (bar 1e-4 absolute, cycles
+   the config's tol against the plain versions (bar: bit for bit, cycles
    per solve printed), K4 one cycle and a solve with cotangents of config
    3's joint log-likelihood (bar 1e-5 of the plain max abs);
 12. the joint gradient of 8 chains (u, hypo_raw, t0) through K1 + K4
@@ -80,7 +82,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    blocked ones, ``sweep_solve_pallas_blocked`` and
    ``transport_solve_pallas_blocked``, whose iteration is two whole-field
    cycles, as the port's on this route): K1 one cycle against the plain
-   cycle (bar 1e-4) and a solve at the config's tol and ``max_iters`` 20
+   cycle (bar: bit for bit) and a solve at the config's tol and ``max_iters`` 20
    (cycles counted, and its error to the field converged without the
    ``max_iters``), K5
    one cycle with cotangents of config 5's joint log-likelihood against the
@@ -107,17 +109,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and with ``sampler.algorithm=mala`` (Laplace setup on 256 dims cut to 40
    MAP steps, 30 + 60 steps), counts reset and read for each: K3 and K6
    launched, logposts finite and rising;
-20. K7 against K1 on config 2's 128 fields of 64^3 (bar 0.0): one cycle
-   (K7 with the source scalars, K1 with ``seed_floor``, timed in turns) and
-   the whole ``solve_eikonal_batched(..., impl="gridbatch")`` against
-   ``impl="field"``, its K7 launches counted from 0 over that solve.
+20. the gridbatch route on config 2's 128 fields of 64^3: the whole
+   ``solve_eikonal_batched(..., impl="gridbatch")`` against
+   ``impl="field"`` (bar: bit for bit; it is the same route), its K1
+   launches counted from 0 over that solve.
 
 The line before the last is a JSON object listing the kernels with their
 launch counts (K1 and K4 on the MALA path, K3 on the SMC path, K5 on the
-config-5 path, K6 on config 1's NUTS path, K7 on the gridbatch solve; K1's
+config-5 path, K6 on config 1's NUTS path, K1 again on the gridbatch solve
+for the TPU's gridbatch kernel; K1's
 and K4's config-3 NUTS counts and times, K1's config-5 counts and times,
 K5's time forced on config 2's batch, K3's config-1 times, K6's config-1
-MALA count and config-4 times and K1's time beside K7's),
+MALA count and config-4 times),
 errors, times and bounds (the larger of
 bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, counted from
 each kernel's source at the shapes timed); the last line is
@@ -144,7 +147,6 @@ C1_CONFIG = os.path.join(REPO, "configs", "c1_crosswell.json")
 C4_CONFIG = os.path.join(REPO, "configs", "c4_smc.json")
 C3_CONFIG = os.path.join(REPO, "configs", "c3_joint_events.json")
 C5_CONFIG = os.path.join(REPO, "configs", "c5_pod_nuts.json")
-K1_BAR = 1e-4       # K1 vs plain, max abs traveltime difference
 K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
 LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
 SMC_STAGES = 3      # c4 ladder cap (depth cut)
@@ -205,23 +207,26 @@ def _bound(nodes, bytes_per_node, ops_per_node):
 # isotropic local solves these grids take (every axis, both directions,
 # n_inner Jacobi steps, plus the axial minimum once per pass):
 # K1 (sweep3d.cu): local_iso ~38 (sorting 6, t1 2, t2 9, t3 15, selects 4),
-#   neighbour minima 6, the min/max with T and the floor 2 -> 46 per step;
+#   neighbour minima 6, the min/max with T and the floor 2 -> 46 per step,
+#   and the floor's 15 (three differences, scalings and squares, three
+#   adds, sqrt, compare, product) once per node and cycle: the floor
+#   depends on the node alone, so that is all the function needs (the
+#   kernel computes it on the planes that meet the seed ball, at each
+#   step there);
 # K3 (sweep2d.cu): local2 ~17, line minimum 3, min/max 2 -> 22 per step;
 # K4 (transport3d.cu): the axial inflow and base 6 per pass, 12 per step
 #   (four guarded weight x lam products and their sum);
 # K6 (transport2d.cu): the axial inflow and base 6 per pass, 6 per step
 #   (two guarded weight x lam products and their sums);
-# K7 (sweep3d.cu, seeded): K1's 46 per step, and the floor's 15 (three
-#   differences, scalings and squares, three adds, sqrt, compare, product)
-#   once per node and cycle: the floor depends on the node alone, so that
-#   is all the function needs. The kernel recomputes it at every Jacobi
-#   step of every pass (6 n_inner times), more than the bound counts.
 def _k1_ops(n_inner):
-    return 6 * (46 * n_inner + 1)
-
-
-def _k7_ops(n_inner):
     return 6 * (46 * n_inner + 1) + 15
+
+
+def _k1_bound(T, n_inner):
+    """K1's bound for one cycle of the batch ``T``: T and s read and T
+    written (12 B per node), four source scalars per field (16 B)."""
+    return _bound(T.numel(), 12 + 16 * T.shape[0] / T.numel(),
+                  _k1_ops(n_inner))
 
 
 def _k6_ops(n_inner):
@@ -400,8 +405,8 @@ def main() -> int:
     # 2. Build.
     k1, k4 = cuda_sweep.SWEEP3D, cuda_transport.TRANSPORT3D
     k3, k5 = cuda_sweep2d.SWEEP2D, cuda_transport.TRANSPORT3D_LARGE
-    k6, k7 = cuda_transport2d.TRANSPORT2D, cuda_sweep.SWEEP3D_SEEDED
-    _build_all([k1, k4, k3, k5, k6, k7])
+    k6 = cuda_transport2d.TRANSPORT2D
+    _build_all([k1, k4, k3, k5, k6])
 
     # 3. K1 vs plain, on the card.
     cfg = load_config(AM_CONFIG)
@@ -411,7 +416,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": [],
             "transport3d_large_cycle": [], "transport2d_cycle": [],
-            "sweep3d_seeded_cycle": []}
+            "gridbatch": []}
 
     def compare(label, s, srcs, g):
         launches0 = k1.launches
@@ -425,11 +430,36 @@ def main() -> int:
         print(f"K1 compare {label}: B={s.shape[0]} grid={g.shape} "
               f"spacing={g.spacing}: max|kernel-plain| = {err:.3e}; "
               f"ms per batch solve: kernel {ms_k:.3f}, plain {ms_p:.3f}")
-        if not finite or not err <= K1_BAR:
+        if not finite or not torch.equal(T_k, T_p):
             raise RuntimeError(f"{label}: kernel disagrees with plain "
                                f"(max abs {err}, finite {finite})")
         errs["sweep3d_cycle"].append(err)
         return T_k
+
+    def k1_cycle_pair(label, T0, s, srcs, g, ecfg, reps):
+        """One K1 cycle against the plain seeded cycle on every field, bit
+        for bit; returns (kernel's cycle, ms per launch, plain ms)."""
+        scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
+        done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
+        launches0 = k1.launches
+        T1_k, ms_k = _timed(lambda: cuda_sweep.seeded_cycle(
+            T0, s, scal, g.spacing, ecfg.n_inner, done,
+            seed_radius=ecfg.seed_radius), reps=reps)
+        if k1.launches == launches0:
+            raise RuntimeError(f"K1 cycle {label}: the kernel was not "
+                               "launched")
+        T1_p, ms_p = _timed(lambda: sweep_seeded_cycle_plain(
+            T0, s, scal, g.spacing, ecfg.n_inner, done,
+            seed_radius=ecfg.seed_radius))
+        err = float((T1_k - T1_p).abs().max())
+        print(f"K1 compare one cycle, {label} B={T0.shape[0]} grid={g.shape}: "
+              f"max|kernel-plain| = {err:.3e}; ms per launch: kernel "
+              f"{ms_k:.3f}, plain {ms_p:.3f}")
+        if not torch.equal(T1_k, T1_p):
+            raise RuntimeError(f"K1 cycle {label}: kernel disagrees with "
+                               f"plain ({err})")
+        errs["sweep3d_cycle"].append(err)
+        return T1_k, ms_k, ms_p
 
     # (a) the main path's batch: 16 chains x c2's 8 sources on its 64^3
     # checkerboard, each chain's slowness perturbed as an AM proposal is.
@@ -449,24 +479,10 @@ def main() -> int:
 
     # One cycle at the main path's shape: the unit a launch does.
     T0, frozen_a = seed_source(s_a, srcs_a, grid, cfg.eikonal.seed_radius)
-    floor = seed_floor(T0, frozen_a)
     done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
-    launches0 = k1.launches
-    T1_k, ms_k1 = _timed(
-        lambda: cuda_sweep.sweep_cycle(T0, s_a, floor, grid.spacing,
-                                       cfg.eikonal.n_inner, done), reps=10)
-    if k1.launches == launches0:
-        raise RuntimeError("K1 cycle: the kernel was not launched")
-    T1_p, ms_k1_plain = _timed(
-        lambda: sweep_cycle_plain(T0, s_a, floor, grid.spacing,
-                                  cfg.eikonal.n_inner, done), reps=1)
-    err_cycle = float((T1_k - T1_p).abs().max())
-    print(f"K1 compare one cycle, B={T0.shape[0]} grid={grid.shape}: "
-          f"max|kernel-plain| = {err_cycle:.3e}; ms per launch: kernel "
-          f"{ms_k1:.3f}, plain {ms_k1_plain:.3f}")
-    if not err_cycle <= K1_BAR:
-        raise RuntimeError(f"K1 cycle: kernel disagrees with plain ({err_cycle})")
-    errs["sweep3d_cycle"].append(err_cycle)
+    _, ms_k1, ms_k1_plain = k1_cycle_pair("c2 batch", T0, s_a, srcs_a, grid,
+                                          cfg.eikonal, reps=10)
+    b_k1, by_k1 = _k1_bound(T0, cfg.eikonal.n_inner)
 
     # (b) odd batch, non-cube grid, unequal spacing (weighted local solve).
     g_b = Grid((48, 40, 32), (1.0, 1.2, 0.9))
@@ -489,15 +505,17 @@ def main() -> int:
                            [31.5, 31.5, 31.5], [5.0, 60.0, 7.0]] * 2,
                           device=dev)
     T_c = compare("c (mixed convergence)", s_c, srcs_c, g_c)
-    T0c, frc = seed_source(s_c, srcs_c, g_c, 3.0)
+    T0c, _ = seed_source(s_c, srcs_c, g_c, 3.0)
+    scal_c = torch.cat(source_scalars(s_c, srcs_c, g_c), dim=1).contiguous()
     history = []
 
-    def recording_cycle(T, s, fl, sp, n_inner, done):
+    def recording_cycle(T, s, sc, sp, n_inner, done):
         history.append(done.clone())
-        return cuda_sweep.sweep_cycle(T, s, fl, sp, n_inner, done)
+        return cuda_sweep.seeded_cycle(T, s, sc, sp, n_inner, done,
+                                       seed_radius=3.0)
 
-    sweep_solve(T0c, seed_floor(T0c, frc), s_c, g_c.spacing, SOLVE_TOL, 200,
-                2, cycle=recording_cycle)
+    sweep_solve(T0c, scal_c, s_c, g_c.spacing, SOLVE_TOL, 200, 2,
+                cycle=recording_cycle)
     cycles = (~torch.stack(history)).sum(0).tolist()
     print(f"K1 compare c: cycles per field {cycles}")
     if len(set(cycles)) < 2:
@@ -877,16 +895,10 @@ def main() -> int:
                           n_inner=c3.eikonal.n_inner,
                           seed_radius=c3.eikonal.seed_radius)
     T0_3, frozen3 = seed_source(s3, srcs3, g3, ecfg3.seed_radius)
-    fl3 = seed_floor(T0_3, frozen3)
     done3 = torch.zeros(T0_3.shape[0], dtype=torch.bool, device=dev)
-    l1 = k1.launches
-    T1k3, ms_k1_c3 = _timed(lambda: cuda_sweep.sweep_cycle(
-        T0_3, s3, fl3, g3.spacing, ecfg3.n_inner, done3), reps=10)
-    if k1.launches == l1:
-        raise RuntimeError("K1 c3 cycle: the kernel was not launched")
-    T1p3, ms_k1_c3_plain = _timed(lambda: sweep_cycle_plain(
-        T0_3, s3, fl3, g3.spacing, ecfg3.n_inner, done3))
-    err_c3 = float((T1k3 - T1p3).abs().max())
+    _, ms_k1_c3, ms_k1_c3_plain = k1_cycle_pair("c3 batch", T0_3, s3, srcs3,
+                                                g3, ecfg3, reps=10)
+    b_k1_c3, _ = _k1_bound(T0_3, ecfg3.n_inner)
     on3 = dataclasses.replace(ecfg3, use_pallas="on")
     off3 = dataclasses.replace(ecfg3, use_pallas="off")
     l1 = k1.launches
@@ -894,16 +906,14 @@ def main() -> int:
     cycles3 = (k1.launches - l1) / 2     # the warm-up call and the timed one
     T3p, ms_s3p = _timed(lambda: solve_eikonal_batched(s3, srcs3, g3, off3))
     err_s3 = float((T3 - T3p).abs().max())
-    print(f"K1 compare c3 batch: B={T0_3.shape[0]} grid={g3.shape}: one cycle "
-          f"max|kernel-plain| = {err_c3:.3e}, ms per launch kernel "
-          f"{ms_k1_c3:.3f}, plain {ms_k1_c3_plain:.3f}; solve at tol "
-          f"{ecfg3.tol} max|kernel-plain| = {err_s3:.3e}, {cycles3:.0f} "
-          f"cycles, ms per solve kernel {ms_s3k:.3f}, plain {ms_s3p:.3f}")
-    if not (bool(torch.isfinite(T3).all()) and err_c3 <= K1_BAR
-            and err_s3 <= K1_BAR):
-        raise RuntimeError(f"K1 c3: kernel disagrees with plain (cycle "
-                           f"{err_c3}, solve {err_s3})")
-    errs["sweep3d_cycle"].extend([err_c3, err_s3])
+    print(f"K1 compare c3 batch: B={T0_3.shape[0]} grid={g3.shape}: solve "
+          f"at tol {ecfg3.tol} max|kernel-plain| = {err_s3:.3e}, "
+          f"{cycles3:.0f} cycles, ms per solve kernel {ms_s3k:.3f}, plain "
+          f"{ms_s3p:.3f}")
+    if not (bool(torch.isfinite(T3).all()) and torch.equal(T3, T3p)):
+        raise RuntimeError(f"K1 c3: kernel solve disagrees with plain "
+                           f"({err_s3})")
+    errs["sweep3d_cycle"].append(err_s3)
 
     T3g = T3.clone().requires_grad_(True)
     resid3 = data3.t_obs - predict_events(
@@ -925,7 +935,7 @@ def main() -> int:
              lam1k3, lam1p3)
     k4_check("c3 batch (joint log-likelihood cotangents, solve)",
              *k4_solve_pair("c3", ct3, ws3, ecfg3.tol, ecfg3.max_iters))
-    del T1k3, T1p3, T3p, T3g, lam1k3, lam1p3, ws3
+    del T3p, T3g, lam1k3, lam1p3, ws3
 
     # 12. The joint gradient of 8 chains, K1 + K4 against the plain solves,
     # and against a central finite difference.
@@ -1029,7 +1039,7 @@ def main() -> int:
           f"{samp[-1]['logpost_mean']}; acceptance {mean('accept'):.4f}; "
           f"{rate_all:.3f} chain-steps/s over {steps} steps (cli wall "
           f"{wall:.1f} s)")
-    del post3, data3, p3, s3, srcs3, fl3, T3, ct3
+    del post3, data3, p3, s3, srcs3, T3, ct3
     torch.cuda.empty_cache()
     print(f"phases 1-14 wall {time.perf_counter() - t_start:.1f} s")
 
@@ -1047,34 +1057,34 @@ def main() -> int:
                           n_inner=c5.eikonal.n_inner,
                           seed_radius=c5.eikonal.seed_radius)
     T0_5, frozen5 = seed_source(s5, srcs5, g5, ecfg5.seed_radius)
-    fl5 = seed_floor(T0_5, frozen5)
     done5 = torch.zeros(T0_5.shape[0], dtype=torch.bool, device=dev)
-    l1 = k1.launches
-    T1k5, ms_k1_c5 = _timed(lambda: cuda_sweep.sweep_cycle(
-        T0_5, s5, fl5, g5.spacing, ecfg5.n_inner, done5), reps=3)
-    if k1.launches == l1:
-        raise RuntimeError("K1 c5 cycle: the kernel was not launched")
-    T1p5, ms_k1_c5_plain = _timed(lambda: sweep_cycle_plain(
-        T0_5, s5, fl5, g5.spacing, ecfg5.n_inner, done5))
-    err_c5 = float((T1k5 - T1p5).abs().max())
-    del T1k5, T1p5
+    _, ms_k1_c5, ms_k1_c5_plain = k1_cycle_pair("c5 batch", T0_5, s5, srcs5,
+                                                g5, ecfg5, reps=3)
+    b_k1_c5, _ = _k1_bound(T0_5, ecfg5.n_inner)
     l1 = k1.launches
     T5, ms_s5k = _timed(lambda: solve_eikonal_batched(
         s5, srcs5, g5, dataclasses.replace(ecfg5, use_pallas="on")))
     cycles5 = (k1.launches - l1) / 2     # the warm-up call and the timed one
     route5 = solve_route(g5.shape, "on", dev)
-    print(f"K1 compare c5 batch: B={T0_5.shape[0]} grid={g5.shape}: one cycle "
-          f"max|kernel-plain| = {err_c5:.3e}, ms per launch kernel "
-          f"{ms_k1_c5:.3f}, plain {ms_k1_c5_plain:.3f}; kernel solve at tol "
+    print(f"K1 compare c5 batch: B={T0_5.shape[0]} grid={g5.shape}: kernel "
+          f"solve at tol "
           f"{ecfg5.tol}, max_iters {ecfg5.max_iters}, route {route5} "
           f"({CYCLES_PER_ITER[route5]} cycles per iteration): {cycles5:.0f} "
           f"cycles, {ms_s5k:.3f} ms")
     if route5 != "blocked":
         raise RuntimeError(f"c5: route {route5}, not the blocked count")
-    if not (bool(torch.isfinite(T5).all()) and err_c5 <= K1_BAR):
-        raise RuntimeError(f"K1 c5: kernel disagrees with plain ({err_c5})")
-    errs["sweep3d_cycle"].append(err_c5)
-    del T0_5, fl5
+    # The plain solve with the blocked route's count (two cycles per
+    # counted iteration) must give the kernel solve's bits.
+    T5p = sweep_solve(T0_5, seed_floor(T0_5, frozen5), s5, g5.spacing,
+                      ecfg5.tol, ecfg5.max_iters, ecfg5.n_inner,
+                      cycles_per_iter=CYCLES_PER_ITER[route5])
+    err_s5 = float((T5 - T5p).abs().max())
+    print(f"K1 c5 batch: blocked solve max|kernel-plain| = {err_s5:.3e}")
+    if not (bool(torch.isfinite(T5).all()) and torch.equal(T5, T5p)):
+        raise RuntimeError(f"K1 c5: kernel solve disagrees with plain "
+                           f"({err_s5})")
+    errs["sweep3d_cycle"].append(err_s5)
+    del T0_5, T5p
     # The error at the config's max_iters to the converged field (tol
     # 1e-5, no max_iters to speak of).
     l1 = k1.launches
@@ -1120,7 +1130,6 @@ def main() -> int:
           f"{ms_sk5:.3f} ms, finite {bool(torch.isfinite(lam5).all())}")
     if not bool(torch.isfinite(lam5).all()):
         raise RuntimeError("K5 c5 solve: non-finite adjoint")
-    b_k1_c5, _ = _bound(s5.numel(), 16, _k1_ops(ecfg5.n_inner))
     b_k5, by_k5 = _bound(s5.numel(), 24, _k4_ops(ecfg5.n_inner))
     b_k5_c2, _ = _bound(s_a.numel(), 24, _k4_ops(cfg.eikonal.n_inner))
     del post5, data5, p5, s5, srcs5, T5, frozen5, ct5, ws5, lam5
@@ -1331,7 +1340,7 @@ def main() -> int:
 
     # 19. Config 1 under NUTS and under MALA through the CLI.
     def c1_leg(label, args):
-        for k in (k1, k3, k4, k5, k6, k7):
+        for k in (k1, k3, k4, k5, k6):
             k.launches = 0
         recs, lines, wall = _run_cli(cli, ["run", C1_CONFIG, *args])
         launches = {"sweep2d_cycle": k3.launches,
@@ -1374,66 +1383,31 @@ def main() -> int:
           f"{rate_all:.2f} chain-steps/s over {steps} steps after init, "
           f"{rate_last:.2f} in the last segment (cli wall {wall:.1f} s)")
 
-    # 20. K7 against K1 on config 2's batch: one cycle (timed in turns),
-    # then the gridbatch solve against the field route's.
-    n_in2 = cfg.eikonal.n_inner
-    scal_a = torch.cat(source_scalars(s_a, srcs_a, grid), dim=1).contiguous()
-
-    def k1_cycle():
-        return cuda_sweep.sweep_cycle(T0, s_a, floor, grid.spacing, n_in2,
-                                      done)
-
-    def k7_cycle():
-        return cuda_sweep.seeded_cycle(T0, s_a, scal_a, grid.spacing, n_in2,
-                                       done,
-                                       seed_radius=cfg.eikonal.seed_radius)
-
-    out_1, ms_a1 = _timed(k1_cycle, reps=10)
-    out_7, ms_a7 = _timed(k7_cycle, reps=10)
-    _, ms_b7 = _timed(k7_cycle, reps=10)
-    _, ms_b1 = _timed(k1_cycle, reps=10)
-    out_p7, ms_k7_plain = _timed(lambda: sweep_seeded_cycle_plain(
-        T0, s_a, scal_a, grid.spacing, n_in2, done,
-        seed_radius=cfg.eikonal.seed_radius))
-    err7 = max(float((out_7 - out_1).abs().max()),
-               float((out_7 - out_p7).abs().max()))
-    ms_k7, ms_k1_turns = (ms_a7 + ms_b7) / 2, (ms_a1 + ms_b1) / 2
-    print(f"K7 one cycle, c2 batch B={T0.shape[0]} grid={grid.shape}: "
-          f"max|K7-K1|, max|K7-plain| = {err7:.3e}; ms per launch in turns "
-          f"K1 {ms_a1:.3f}, K7 {ms_a7:.3f}, K7 {ms_b7:.3f}, K1 {ms_b1:.3f}; "
-          f"plain seeded cycle {ms_k7_plain:.3f}")
-    if not (torch.equal(out_7, out_1) and torch.equal(out_7, out_p7)):
-        raise RuntimeError(f"K7 cycle: disagrees with K1 or plain ({err7})")
-    errs["sweep3d_seeded_cycle"].append(err7)
-    del out_1, out_7, out_p7
-    for k in (k1, k3, k4, k5, k6, k7):
+    # 20. The gridbatch route on config 2's batch: the field route under
+    # the reference's name, so the same launches and the same bits.
+    for k in (k1, k3, k4, k5, k6):
         k.launches = 0
     T_gb = solve_eikonal_batched(s_a, srcs_a, grid, econf, impl="gridbatch")
-    gb_launches = {"sweep3d_seeded_cycle": k7.launches,
-                   "sweep3d_cycle": k1.launches}
-    if gb_launches["sweep3d_seeded_cycle"] <= 0 or k1.launches:
-        raise RuntimeError(f"gridbatch solve: not through K7 alone "
-                           f"({gb_launches})")
+    gb_launches = k1.launches
+    if gb_launches <= 0 or k3.launches or k4.launches or k5.launches:
+        raise RuntimeError(f"gridbatch solve: not through K1 alone "
+                           f"(K1 {gb_launches})")
     _, ms_gb = _timed(lambda: solve_eikonal_batched(
         s_a, srcs_a, grid, econf, impl="gridbatch"))
     T_fd, ms_fd = _timed(lambda: solve_eikonal_batched(
         s_a, srcs_a, grid, econf, impl="field"))
     err_gb = float((T_gb - T_fd).abs().max())
-    print(f"gridbatch solve, c2 batch at tol {econf.tol}: launches "
-          f"{gb_launches}; max|gridbatch-field| = {err_gb:.3e}; ms per solve "
+    print(f"gridbatch solve, c2 batch at tol {econf.tol}: {gb_launches} K1 "
+          f"launches; max|gridbatch-field| = {err_gb:.3e}; ms per solve "
           f"gridbatch {ms_gb:.3f}, field {ms_fd:.3f}")
     if not torch.equal(T_gb, T_fd):
         raise RuntimeError(f"gridbatch solve disagrees with field ({err_gb})")
-    errs["sweep3d_seeded_cycle"].append(err_gb)
-    b_k7, by_k7 = _bound(s_a.numel(), 12 + 16 * s_a.shape[0] / s_a.numel(),
-                         _k7_ops(n_in2))
+    errs["gridbatch"].append(err_gb)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
     # active, as in the timed launches).
-    b_k1, by_k1 = _bound(s_a.numel(), 16, _k1_ops(cfg.eikonal.n_inner))
     b_k4, by_k4 = _bound(s_a.numel(), 24, _k4_ops(cfg.eikonal.n_inner))
-    b_k1_c3, _ = _bound(T0_3.numel(), 16, _k1_ops(ecfg3.n_inner))
     b_k4_c3, _ = _bound(T0_3.numel(), 24, _k4_ops(ecfg3.n_inner))
     b_k3, by_k3 = _bound(math.prod(g4.shape) * n_part * n_src4, 16,
                          _k3_ops(ecfg4.n_inner))
@@ -1441,6 +1415,7 @@ def main() -> int:
                         16, _k3_ops(ecfg1.n_inner))
     print(json.dumps({"kernels": [{
         "name": "sweep3d_cycle",
+        "tpu_kernel": "sweep_axes012_fused, sweep_axes01_fused, sweep_axis0",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep3d.cu",
         "replaces": "mceik_tpu/eikonal/pallas_sweep.py:372, :222, :132",
@@ -1523,18 +1498,18 @@ def main() -> int:
         "c4_plain_ms": ms_k6_c4_plain,
         "c4_bound_ms": b_k6_c4,
     }, {
-        "name": "sweep3d_seeded_cycle",
+        "name": "sweep3d_cycle",
+        "tpu_kernel": "sweep_axis0_gridbatch (the gridbatch route)",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep3d.cu",
         "replaces": "mceik_tpu/eikonal/pallas_sweep.py:740",
-        "launches": gb_launches["sweep3d_seeded_cycle"],
-        "max_abs_err": max(errs["sweep3d_seeded_cycle"]),
-        "ms": ms_k7,
-        "plain_ms": ms_k7_plain,
-        "bound_ms": b_k7,
-        "bound_by": by_k7,
+        "launches": gb_launches,
+        "max_abs_err": max(errs["gridbatch"] + errs["sweep3d_cycle"]),
+        "ms": ms_k1,
+        "plain_ms": ms_k1_plain,
+        "bound_ms": b_k1,
+        "bound_by": by_k1,
         "library_ms": None,
-        "k1_ms_same_call": ms_k1_turns,
         "solve_ms": ms_gb,
         "field_solve_ms": ms_fd,
     }]}))

@@ -1,64 +1,87 @@
-// K1: one full 3-D eikonal sweep cycle over a batch of fields, for sm_90a.
+// K1: one full 3-D eikonal sweep cycle over a batch of fields, for sm_90a,
+// with the seed floor computed in the kernel.
 //
-// Replaces the Pallas TPU kernel `_sweep_axes012_fused_kernel` /
-// `sweep_axes012_fused` (mceik_tpu/eikonal/pallas_sweep.py:343, :372), the
-// body of `sweep_solve_pallas_packed` on cube grids; and on non-cube grids
-// with n_x == n_y (config 3's 48x48x32) the pair that packed route takes
+// Replaces four Pallas TPU kernels, all of which march one 3-D cycle:
+// `_sweep_axes012_fused_kernel` / `sweep_axes012_fused`
+// (mceik_tpu/eikonal/pallas_sweep.py:343, :372), the body of
+// `sweep_solve_pallas_packed` on cube grids; on non-cube grids with
+// n_x == n_y (config 3's 48x48x32) the pair that packed route takes
 // instead, `_sweep_axes01_fused_kernel` / `sweep_axes01_fused` (:196, :222,
 // call :230) for axes 0 and 1 and `_sweep_axis0_kernel` / `sweep_axis0`
-// (:82, :132, call :139) for axis 2. The TPU splits a cycle across those
-// two calls for its VMEM layouts; here one launch marches all three axes of
-// any 3-D shape whose three largest planes fit in shared memory (27.6 KB at
-// 48x48x32). It computes the plain
-// reference `sweep_cycle_plain` (mceik_tpu_torch/eikonal/solve.py, itself
-// the port of mceik_tpu/eikonal/solve.py:_sweep_cycle) operation for
-// operation: for axis 0, 1, 2 in turn, march the planes forward and then
-// backward; each plane takes a_ax = min(T[i-1], T[i+1]) (T[i-1] already
-// updated in this march, edges read BIG) and then n_inner in-plane Jacobi
-// steps T = max(min(T, local_solve(a)), floor).
+// (:82, :132, call :139) for axis 2 (also the blocked 128^3 route, :961,
+// :1003); and `_sweep_axis0_seeded_kernel` / `sweep_axis0_gridbatch`
+// (:667, :740, call :762), the gridbatch route. The TPU splits a cycle
+// across those calls for its VMEM layouts; here one launch marches all three
+// axes of any 3-D shape whose planes fit in shared memory. It computes the
+// plain reference `sweep_seeded_cycle_plain` (mceik_tpu_torch/eikonal/
+// solve.py) operation for operation: for axis 0, 1, 2 in turn, march the
+// planes forward and then backward; each plane takes a_ax = min(T[i-1],
+// T[i+1]) (T[i-1] already updated in this march, edges read BIG) and then
+// n_inner in-plane Jacobi steps T = max(min(T, local_solve(a)), floor).
 //
-// Design. One CTA owns one field (B = 128 fields of 64^3 fill 128 of the
-// H100's 132 SMs) and walks the whole cycle on it; the plane march is
-// sequential, so there is nothing to split across CTAs without a grid-wide
-// barrier. Shared memory holds three plane buffers: the axial minimum a_ax
-// (built in place over the previous plane's final values) and the current
-// plane double-buffered for the Jacobi steps, with __syncthreads() between
-// micro-iterations and planes. A 64^2 plane is 16 KB, so 48 KB in all.
-// T is updated in place in global memory; the caller keeps the cycle's
-// input to measure convergence. The seed floor is an operand, not rebuilt
-// from the source coordinates as the TPU kernel does to save VMEM.
-//
-// What bounds it. Each plane visit loads the current and the downstream
-// plane of T, reads s and floor once per Jacobi step, stores the plane, and
-// crosses n_inner + 2 block barriers; the ~40 flops per node and step are
-// small beside that, so the kernel is bound by global-load latency and
-// barrier count, with one CTA of 1024 threads per SM to hide them. The
-// axis-0 and axis-1 sweeps walk planes whose rows run along z and load
-// coalesced; the axis-2 sweep's planes are (x, y) slices whose rows are
-// strided by nz floats, so its loads do not coalesce. Transposed layouts,
-// clusters and TMA are later work.
-//
-// K7 is the same kernel with kSeeded = true. It replaces the Pallas TPU
-// kernel `_sweep_axis0_seeded_kernel` / `sweep_axis0_gridbatch`
-// (pallas_sweep.py:667, :740, call :762), the opt-in gridbatch route
-// (`solve_eikonal_batched(..., impl="gridbatch")`), which marches a whole
-// batch per launch and rebuilds the seed floor in the kernel instead of
-// reading a floor field. K7 takes no floor operand: it reads four floats
-// per field, the source's fractional index coordinates (a, b, c) and its
-// slowness s_src, and computes at each node of each Jacobi step
+// The floor. The kernel reads four floats per field, the source's
+// fractional index coordinates (a, b, c) and its slowness s_src, as the
+// TPU's gridbatch kernel does, and computes at each node
 //   dist = sqrtf(((((i-a)*h0)^2 + ((j-b)*h1)^2) + ((k-c)*h2)^2) + 1e-12f),
 //   floor = dist <= radius ? s_src * dist : 0,
 // summed in the grid's own axis order whatever the swept axis (the TPU
 // kernel's `floor_at` sums in its permuted order, a different rounding the
-// port does not copy), so its floor is bitwise the `seed_floor` K1 reads.
-// That saves K1's floor read, 4 of its 16 bytes per node and cycle, for
-// ~12 flops and a sqrt per node and step. The floor depends on the node
-// alone, so the function needs it once per node and cycle; recomputing it
-// at each of the 6 * n_inner steps costs more operations than that (the
-// bound counts it once) but no shared memory, which K7 keeps at K1's three
-// planes. K1 is bound by latency and barriers, so little speed is expected. The TPU kernel's lane packing, its
-// done flag in `scal` column 4 and its per-block convergence are left out:
-// done flags are per field, as K1's.
+// port does not copy), so the floor is bitwise `seed_floor`'s. No
+// (B,) + grid floor tensor is read or built.
+//
+// Design. One CTA owns one field (B = 128 fields of 64^3 fill 128 of the
+// H100's 132 SMs) and walks the whole cycle on it; the plane march is
+// sequential, so there is nothing to split across CTAs without a grid-wide
+// barrier. Thread t owns the in-plane nodes t, t + nthr, ... of every plane
+// of an axis: NPT of them, a template constant (1-4, and 8, 12, 16, 20 for
+// larger planes, the unused slots masked), so the per-node state lives in
+// registers and the node coordinates are divided out once per axis, not per
+// step (kRowQ: where the thread count is a multiple of every plane's row,
+// as at 64^3 and 128^3, a thread's nodes share a column and no coordinate
+// is kept per node at all). Shared memory holds the plane double-buffered
+// for the neighbour exchange between Jacobi steps (on the register path
+// with a one-node halo of BIG, so the neighbour reads need no edge guards:
+// 2 x 66^2 floats at 64^2). Per plane visit each thread reads its nodes' T and s and the
+// downstream T once, stores its nodes once, and between them runs the
+// n_inner steps on registers and the exchange buffer alone: no global load
+// and no division inside the Jacobi loop.
+//   Up to 4 nodes per thread (planes up to 4096 nodes: configs 2 and 3), T,
+// a_ax, s and the floor stay in registers for the whole visit, and the next
+// plane's s and its downstream T are loaded at the start of the visit (into
+// registers) and used at its end, so their latency hides behind the Jacobi
+// steps. The T of the plane after the current one was loaded a visit
+// earlier as that visit's downstream plane (it is unchanged until the march
+// reaches it).
+//   Above (128^2 planes: config 5's 16 nodes per thread), four values per
+// node would take the whole 64-register budget of a 1024-thread block, so
+// only a_ax stays in registers: s is staged in a third shared plane once per
+// visit, T is read from the exchange buffer, the floor is recomputed at each
+// step (3 planes: 192 KB at 128^2), and nothing is prefetched.
+//   The floor is 0 off the seed ball, so it is computed only on the planes
+// that meet the ball (a uniform test per visit, exact: see in_ball), once
+// per visit (register path) or per step (staged path).
+//   Axis 2. Its (x, y) planes are strided by nz floats in T's layout, so a
+// warp's access to 32 nodes of a plane touches 32 sectors, and the next
+// visits' sectors do not stay in L1: the axis-2 march took 8.6 of a
+// cycle's 10.0 ms at 64^3 before this, against 0.8 ms for each other axis.
+// So before the axis-2 march the CTA copies its field's T and s into a
+// scratch pair laid out (nz, nx, ny), 32x32 tiles through shared memory
+// with reads and writes both along a contiguous axis, marches axis 2 there
+// exactly as axes 0 and 1 (planes contiguous), and copies T back. That
+// covers T as well as s at every size, where a z-major s alone would leave
+// T's loads and stores strided and a staged slab of z-planes does not fit
+// beside 128^2 planes. The copies cost 8 bytes per node each way, the
+// scratch 2 fields per field (the caller allocates it), and the shared
+// memory one 32 x 33 tile per warp (132 KB at 1024 threads), which the
+// plane buffers reuse.
+//
+// What bounds it. The ~46 operations per node and step (two correctly
+// rounded square roots among them) and the n_inner + 1 block barriers per
+// plane visit: the global traffic is each node's T and s read once and T
+// written once per visit, coalesced on every axis. Every instance uses the
+// 64 registers a 1024-thread block allows, and spills (ptxas -v, bytes of
+// spill stores: 304 at config 2's 4 nodes per thread, 180 at config 3's 3,
+// 300 at config 5's 16).
 //
 // Arithmetic matches mceik_tpu_torch/eikonal/godunov.py (and the JAX
 // package) in operation order; build with --fmad=false so that no product
@@ -71,17 +94,22 @@ namespace {
 
 constexpr float kBig = 1e10f;
 constexpr float kDiscFloor = 1e-12f;
+constexpr int kMaxThreads = 1024;
+// Nodes per thread up to which T, s and the floor stay in registers.
+constexpr int kRegNodes = 4;
+// One warp's transposition tile, 32 x 33 floats (padded: no bank conflicts).
+constexpr int kTileFloats = 32 * 33;
 
 struct SweepConsts {
-  float h[3];   // spacing per grid axis
-  float hh[3];  // h*h, rounded once from double (as JAX's weak-typed h*h)
-  float w[3];   // 1/(h*h), rounded once from double
-  int iso;      // all spacings equal -> closed form (godunov.py's choice)
+  float h[3];    // spacing per grid axis
+  float hh[3];   // h*h, rounded once from double (as JAX's weak-typed h*h)
+  float w[3];    // 1/(h*h), rounded once from double
+  int iso;       // all spacings equal -> closed form (godunov.py's choice)
   int n_inner;
-  float radius;  // K7: seed ball radius, seed_radius * max(h), in fp32
+  float radius;  // seed ball radius, seed_radius * max(h), in fp32
 };
 
-// K7's floor at node (i0, i1, i2) from the field's (a, b, c, s_src):
+// The floor at node (i0, i1, i2) from the field's (a, b, c, s_src):
 // solve.seeded_floor_plain's operations in its order.
 __device__ __forceinline__ float seeded_floor(const float* sc, int i0, int i1,
                                               int i2, const SweepConsts& c) {
@@ -144,32 +172,103 @@ __device__ __forceinline__ float local_weighted(float a1, float a2, float a3,
   return t1 <= a2 ? t1 : (t2 <= a3 ? t2 : t3);
 }
 
+// One plane axis layout: the swept axis `ax`, the plane axes p < q.
+struct Axis {
+  int np, nq, nax, plane;
+  int sa, sp, sq;  // element strides of the swept and plane axes
+  float h, hh, w0, w1, w2;
+};
+
+// The local update of the node at `k` of the exchange buffer `cur`:
+// neighbour minima (edges BIG: from a BIG halo around the plane (kHalo),
+// rows nq + 2 long, or by guards on (ip, iq)), the local solve, the
+// monotone min and the floor.
+template <bool kHalo>
+__device__ __forceinline__ float node_update(const float* cur, int k, int ip,
+                                             int iq, float tc, float aax,
+                                             float s, float fl,
+                                             const Axis& A,
+                                             const SweepConsts& c) {
+  float ap, aq;
+  if constexpr (kHalo) {
+    ap = fminf(cur[k + A.nq + 2], cur[k - A.nq - 2]);
+    aq = fminf(cur[k + 1], cur[k - 1]);
+  } else {
+    ap = fminf(ip + 1 < A.np ? cur[k + A.nq] : kBig,
+               ip > 0 ? cur[k - A.nq] : kBig);
+    aq = fminf(iq + 1 < A.nq ? cur[k + 1] : kBig,
+               iq > 0 ? cur[k - 1] : kBig);
+  }
+  const float t = c.iso ? local_iso(aax, ap, aq, s, A.h, A.hh)
+                        : local_weighted(aax, ap, aq, A.w0, A.w1, A.w2, s);
+  return fmaxf(fminf(tc, t), fl);
+}
+
+// Copies the field src, laid out (n0, n1, n2), into dst laid out
+// (n2, n0, n1) (to_z) or back (!to_z): 32x32 tiles of (y, z) at one x, one
+// tile per warp at a time through the warp's padded tile in shared memory,
+// so that both the reads and the writes run along a contiguous axis.
+__device__ void transpose_field(const float* src, float* dst, int n0, int n1,
+                                int n2, bool to_z, float* tiles) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  float* tile = tiles + warp * kTileFloats;
+  const int ty = (n1 + 31) / 32, tz = (n2 + 31) / 32;
+  const int ntiles = n0 * ty * tz;
+  for (int t = warp; t < ntiles; t += nw) {
+    const int x = t / (ty * tz);
+    const int rem = t - x * ty * tz;
+    const int y0 = (rem / tz) * 32, z0 = (rem % tz) * 32;
+    // Read rows of the source's contiguous axis (z, or y when !to_z).
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int y = to_z ? y0 + r : y0 + lane;
+      const int z = to_z ? z0 + lane : z0 + r;
+      const int off = to_z ? (x * n1 + y) * n2 + z : (z * n0 + x) * n1 + y;
+      tile[r * 33 + lane] = (y < n1 && z < n2) ? src[off] : 0.0f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int y = to_z ? y0 + lane : y0 + r;
+      const int z = to_z ? z0 + r : z0 + lane;
+      const int off = to_z ? (z * n0 + x) * n1 + y : (x * n1 + y) * n2 + z;
+      if (y < n1 && z < n2) dst[off] = tile[lane * 33 + r];
+    }
+    __syncwarp();
+  }
+}
+
 // T is read and written by the CTA (no __restrict__/read-only path: later
-// plane visits must see earlier stores of the same CTA). K1 reads the floor
-// field F; K7 (kSeeded) the field's four seed scalars at F + 4 b.
-template <bool kSeeded>
-__global__ void __launch_bounds__(1024)
+// plane visits must see earlier stores of the same CTA).
+template <int NPT, bool kRowQ>
+__global__ void __launch_bounds__(kMaxThreads)
 sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
-                     const float* __restrict__ F,
+                     const float* __restrict__ scal, float* scratch,
                      const uint8_t* __restrict__ done, int n0, int n1, int n2,
                      SweepConsts c) {
+  constexpr bool kStageS = NPT > kRegNodes;
+  // The register path's exchange buffers carry a BIG halo (no guards).
+  constexpr bool kHalo = !kStageS;
   const int b = blockIdx.x;
   if (done[b]) return;  // uniform per CTA: no barrier is skipped by half
   const int64_t field = (int64_t)n0 * n1 * n2;
   T += b * field;
   S += b * field;
-  F += kSeeded ? 4 * (int64_t)b : b * field;
+  // The axis-2 march runs on copies laid out (n2, n0, n1): T's and s's.
+  float* const Tz = scratch + 2 * b * field;
+  float* const Sz = Tz + field;
   float sc[4];
-  if (kSeeded)
-    for (int e = 0; e < 4; ++e) sc[e] = F[e];
+  for (int e = 0; e < 4; ++e) sc[e] = scal[4 * b + e];
 
   extern __shared__ float smem[];
-  const int n[3] = {n0, n1, n2};
-  const int64_t stride[3] = {(int64_t)n1 * n2, n2, 1};
-  const int max_plane = max(n1 * n2, max(n0 * n2, n0 * n1));
-  float* buf0 = smem;
-  float* buf1 = smem + max_plane;
-  float* buf2 = smem + 2 * max_plane;
+  const int max_plane =
+      kHalo ? max((n1 + 2) * (n2 + 2),
+                  max((n0 + 2) * (n2 + 2), (n0 + 2) * (n1 + 2)))
+            : max(n1 * n2, max(n0 * n2, n0 * n1));
+  float* const bufA = smem;
+  float* const bufB = smem + max_plane;
+  float* const sbuf = smem + 2 * max_plane;  // kStageS only
   const int tid = threadIdx.x, nthr = blockDim.x;
 
   for (int ax = 0; ax < 3; ++ax) {
@@ -177,86 +276,242 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
     // reference's moveaxis layout.
     const int p = ax == 0 ? 1 : 0;
     const int q = ax == 2 ? 1 : 2;
-    const int np_ = n[p], nq = n[q], nax = n[ax];
-    const int plane = np_ * nq;
-    const int64_t sa = stride[ax], sp = stride[p], sq = stride[q];
-    const float h = c.h[ax], hh = c.hh[ax];
-    const float w0 = c.w[ax], w1 = c.w[p], w2 = c.w[q];
+    Axis A;
+    A.np = p == 0 ? n0 : n1;
+    A.nq = q == 1 ? n1 : n2;
+    A.nax = ax == 0 ? n0 : (ax == 1 ? n1 : n2);
+    A.plane = A.np * A.nq;
+    A.sa = ax == 0 ? n1 * n2 : (ax == 1 ? n2 : 1);
+    A.sp = p == 0 ? n1 * n2 : n2;
+    A.sq = q == 1 ? n2 : 1;
+    float* Tm = T;
+    const float* Sm = S;
+    if (ax == 2) {
+      // The (x, y) planes of axis 2 are strided by n2 in T's layout: march
+      // them in the transposed copies, whose (x, y) planes are contiguous.
+      transpose_field(T, Tz, n0, n1, n2, true, smem);
+      transpose_field(S, Sz, n0, n1, n2, true, smem);
+      __syncthreads();
+      Tm = Tz;
+      Sm = Sz;
+      A.sa = n0 * n1;
+      A.sp = n1;
+      A.sq = 1;
+    }
+    A.h = c.h[ax];
+    A.hh = c.hh[ax];
+    A.w0 = c.w[ax];
+    A.w1 = c.w[p];
+    A.w2 = c.w[q];
+
+    if constexpr (kHalo) {
+      for (int e = tid; e < (A.np + 2) * (A.nq + 2); e += nthr) {
+        bufA[e] = kBig;
+        bufB[e] = kBig;
+      }
+      __syncthreads();
+    }
+    // The owned nodes' in-plane coordinates, divided out once per axis.
+    // kRowQ (nthr a multiple of every plane's row length nq): a thread's
+    // nodes share iq and step ip by nthr / nq, so nothing is kept per node.
+    // Otherwise one register per node holds ip << 16 | iq (-1 past the
+    // plane; sides are below 2^15: a plane holds a whole side, and planes
+    // hold at most 20 * 1024 nodes).
+    const int ip0 = tid / A.nq, iq0 = tid - ip0 * A.nq, dip = nthr / A.nq;
+    int ipq[kRowQ ? 1 : NPT];
+    if constexpr (!kRowQ) {
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) {
+        const int m = tid + j * nthr;
+        const int ip = m / A.nq;
+        ipq[j] = m < A.plane ? (ip << 16) | (m - ip * A.nq) : -1;
+      }
+    }
+    auto ip_of = [&](int j) {
+      if constexpr (kRowQ) return ip0 + j * dip; else return ipq[j] >> 16;
+    };
+    auto iq_of = [&](int j) {
+      if constexpr (kRowQ) return iq0; else return ipq[j] & 0xffff;
+    };
+    auto owns = [&](int j) {
+      if constexpr (kRowQ) return ip0 + j * dip < A.np; else return ipq[j] >= 0;
+    };
+    auto po = [&](int j) { return ip_of(j) * A.sp + iq_of(j) * A.sq; };
+    // The owned node's place in the shared-memory buffers.
+    auto at = [&](int j) {
+      if constexpr (kHalo) return (ip_of(j) + 1) * (A.nq + 2) + iq_of(j) + 1;
+      else return tid + j * nthr;
+    };
+    // The node's grid indices: i on the swept axis, ip and iq on p < q.
+    auto floor_at = [&](int i, int j) {
+      const int g0 = ax == 0 ? i : ip_of(j);
+      const int g1 = ax == 1 ? i : (ax == 0 ? ip_of(j) : iq_of(j));
+      const int g2 = ax == 2 ? i : iq_of(j);
+      return seeded_floor(sc, g0, g1, g2, c);
+    };
+    // Whether plane i meets the seed ball. Off it every floor is exactly 0:
+    // the rounded distance is at least the swept axis's |d| (the other
+    // terms are >= 0 and fp32 rounding is monotone) to within 2^-22 of it.
+    const float src_ax = ax == 0 ? sc[0] : (ax == 1 ? sc[1] : sc[2]);
+    auto in_ball = [&](int i) {
+      return fabsf(((float)i - src_ax) * A.h) <= c.radius * 1.0001f;
+    };
 
     for (int dir = 0; dir < 2; ++dir) {
       const int step = dir == 0 ? 1 : -1;
-      const int first = dir == 0 ? 0 : nax - 1;
-      float* aax = buf0;
-      float* cur = buf1;
-      float* nxt = buf2;
-      // a_ax for the first plane: prev is BIG, so min(BIG, T[next]).
+      const int first = dir == 0 ? 0 : A.nax - 1;
+      float* cur = bufA;
+      float* nxt = bufB;
+      // Per owned node: a_ax, and (register path) this plane's T, s and
+      // floor, the next plane's T and s, the downstream plane's T.
+      float aax[NPT], tc[NPT], sv[NPT], fl[NPT], t1[NPT], t2[NPT], s1[NPT];
       {
         const int inx = first + step;
-        const bool has = inx >= 0 && inx < nax;
-        for (int m = tid; m < plane; m += nthr) {
-          const int ip = m / nq, iq = m - ip * nq;
-          aax[m] = has ? fminf(kBig, T[inx * sa + ip * sp + iq * sq]) : kBig;
+        const bool has = inx >= 0 && inx < A.nax;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          if (!owns(j)) continue;
+          const int m = at(j);
+          const int off = first * A.sa + po(j);
+          const float tn = has ? Tm[inx * A.sa + po(j)] : kBig;
+          // First plane: the previous plane is BIG.
+          aax[j] = fminf(kBig, tn);
+          const float t0 = Tm[off];
+          cur[m] = t0;
+          if constexpr (kStageS) {
+            sbuf[m] = Sm[off];
+          } else {
+            tc[j] = t0;
+            t1[j] = tn;
+            sv[j] = Sm[off];
+          }
         }
       }
-      for (int k = 0; k < nax; ++k) {
+      __syncthreads();
+      for (int k = 0; k < A.nax; ++k) {
         const int i = first + step * k;
-        const int64_t base = i * sa;
-        for (int m = tid; m < plane; m += nthr) {
-          const int ip = m / nq, iq = m - ip * nq;
-          cur[m] = T[base + ip * sp + iq * sq];
-        }
-        __syncthreads();
-        for (int it = 0; it < c.n_inner; ++it) {
-          for (int m = tid; m < plane; m += nthr) {
-            const int ip = m / nq, iq = m - ip * nq;
-            const int64_t off = base + ip * sp + iq * sq;
-            const float tc = cur[m];
-            const float ap = fminf(ip + 1 < np_ ? cur[m + nq] : kBig,
-                                   ip > 0 ? cur[m - nq] : kBig);
-            const float aq = fminf(iq + 1 < nq ? cur[m + 1] : kBig,
-                                   iq > 0 ? cur[m - 1] : kBig);
-            const float s = S[off];
-            const float t = c.iso ? local_iso(aax[m], ap, aq, s, h, hh)
-                                  : local_weighted(aax[m], ap, aq, w0, w1, w2, s);
-            float fl;
-            if (kSeeded) {
-              // The node's grid indices: i on the swept axis, ip and iq on
-              // the plane axes p < q.
-              const int g0 = ax == 0 ? i : ip;
-              const int g1 = ax == 1 ? i : (ax == 0 ? ip : iq);
-              const int g2 = ax == 2 ? i : iq;
-              fl = seeded_floor(sc, g0, g1, g2, c);
-            } else {
-              fl = F[off];
-            }
-            nxt[m] = fmaxf(fminf(tc, t), fl);
+        const int inx2 = i + 2 * step;  // the next plane's downstream plane
+        const bool more = k + 1 < A.nax;
+        const bool has2 = inx2 >= 0 && inx2 < A.nax;
+        const bool ball = in_ball(i);
+        if constexpr (!kStageS) {
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) {
+            if (!owns(j)) continue;
+            // Loads for the next visit, used after the Jacobi steps.
+            t2[j] = has2 ? Tm[inx2 * A.sa + po(j)] : kBig;
+            s1[j] = more ? Sm[(i + step) * A.sa + po(j)] : 0.0f;
           }
-          __syncthreads();
+          if (ball) {
+#pragma unroll
+            for (int j = 0; j < NPT; ++j) fl[j] = floor_at(i, j);
+          } else {
+#pragma unroll
+            for (int j = 0; j < NPT; ++j) fl[j] = 0.0f;
+          }
+        }
+        // The n_inner Jacobi steps, with the floor of owned node j from
+        // floor_of(j).
+        auto jacobi = [&](auto floor_of) {
+          for (int it = 0; it < c.n_inner; ++it) {
+#pragma unroll
+            for (int j = 0; j < NPT; ++j) {
+              if (!owns(j)) continue;
+              const int m = at(j);
+              if constexpr (kStageS) {
+                nxt[m] = node_update<kHalo>(cur, m, ip_of(j), iq_of(j),
+                                            cur[m], aax[j], sbuf[m],
+                                            floor_of(j), A, c);
+              } else {
+                tc[j] = node_update<kHalo>(cur, m, ip_of(j), iq_of(j),
+                                           tc[j], aax[j], sv[j],
+                                           floor_of(j), A, c);
+                nxt[m] = tc[j];
+              }
+            }
+            __syncthreads();
+            float* tmp = cur; cur = nxt; nxt = tmp;
+          }
+        };
+        if constexpr (kStageS) {
+          // A uniform branch, so that planes off the ball skip the floor.
+          if (ball) {
+            jacobi([&](int j) { return floor_at(i, j); });
+          } else {
+            jacobi([](int) { return 0.0f; });
+          }
+        } else {
+          jacobi([&](int j) { return fl[j]; });
+        }
+        // Store the plane and fold it into the next plane's a_ax; load the
+        // next plane into the exchange buffer (each thread touches only its
+        // own nodes here).
+        const int off_i = i * A.sa;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          if (!owns(j)) continue;
+          const int m = at(j);
+          if constexpr (kStageS) {
+            const float v = cur[m];
+            Tm[off_i + po(j)] = v;
+            if (more) {
+              const int off_n = (i + step) * A.sa + po(j);
+              aax[j] = fminf(v, has2 ? Tm[inx2 * A.sa + po(j)] : kBig);
+              cur[m] = Tm[off_n];
+              sbuf[m] = Sm[off_n];
+            }
+          } else {
+            const float v = tc[j];
+            Tm[off_i + po(j)] = v;
+            if (more) {
+              aax[j] = fminf(v, t2[j]);
+              tc[j] = t1[j];
+              t1[j] = t2[j];
+              sv[j] = s1[j];
+              nxt[m] = tc[j];
+            }
+          }
+        }
+        if constexpr (!kStageS) {
           float* tmp = cur; cur = nxt; nxt = tmp;
         }
-        // Store the plane; fold it into the next plane's a_ax in place
-        // (each thread touches only its own nodes here).
-        const int inx2 = i + 2 * step;  // the next plane's downstream plane
-        const bool more = k + 1 < nax;
-        const bool has2 = inx2 >= 0 && inx2 < nax;
-        for (int m = tid; m < plane; m += nthr) {
-          const int ip = m / nq, iq = m - ip * nq;
-          const float v = cur[m];
-          T[base + ip * sp + iq * sq] = v;
-          if (more)
-            cur[m] = fminf(v, has2 ? T[inx2 * sa + ip * sp + iq * sq] : kBig);
-        }
-        float* tmp = aax; aax = cur; cur = tmp;
         __syncthreads();
       }
     }
+    if (ax == 2) transpose_field(Tz, T, n0, n1, n2, false, smem);
   }
 }
 
-template <bool kSeeded>
-int launch(float* T, const float* S, const float* F, const uint8_t* done,
-           int B, int n0, int n1, int n2, const float* consts, int iso,
-           int n_inner, float radius, int threads, int device, void* stream) {
+template <int NPT, bool kRowQ>
+int launch_npt(float* T, const float* S, const float* scal, float* scratch,
+               const uint8_t* done, int B, int n0, int n1, int n2,
+               const SweepConsts& c, int threads, size_t smem,
+               void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep3d_cycle_kernel<NPT, kRowQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sweep3d_cycle_kernel<NPT, kRowQ><<<B, threads, smem,
+                                     (cudaStream_t)stream>>>(
+      T, S, scal, scratch, done, n0, n1, n2, c);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry, loaded with ctypes: one cycle on the (B, n0, n1, n2) batch T in
+// place, slowness S of the same shape, `scal` the (B, 4) rows
+// (a, b, c, s_src) of each field's source, `radius` the seed ball's radius,
+// `scratch` 2 * B * n0 * n1 * n2 floats for the axis-2 copies. `consts` is
+// a host array of 9 floats (h[3], hh[3], w[3]). Launches on `stream` of
+// `device` and returns the CUDA error code of the set-up calls or of
+// cudaGetLastError() after the launch (0 = launched; -1 = a plane larger
+// than 20 nodes per thread). Does not synchronise.
+extern "C" int sweep3d_cycle(float* T, const float* S, const float* scal,
+                             float* scratch, const uint8_t* done, int B,
+                             int n0, int n1, int n2, const float* consts,
+                             int iso, int n_inner, float radius, int threads,
+                             int device, void* stream) {
   SweepConsts c;
   for (int d = 0; d < 3; ++d) {
     c.h[d] = consts[d];
@@ -269,40 +524,36 @@ int launch(float* T, const float* S, const float* F, const uint8_t* done,
   int max_plane = n1 * n2;
   if (n0 * n2 > max_plane) max_plane = n0 * n2;
   if (n0 * n1 > max_plane) max_plane = n0 * n1;
-  const size_t smem = 3 * (size_t)max_plane * sizeof(float);
+  const int npt = (max_plane + threads - 1) / threads;
+  // The plane buffers (two with a one-node halo up to kRegNodes nodes per
+  // thread, else three), or the warps' transposition tiles if larger.
+  int padded = (n1 + 2) * (n2 + 2);
+  if ((n0 + 2) * (n2 + 2) > padded) padded = (n0 + 2) * (n2 + 2);
+  if ((n0 + 2) * (n1 + 2) > padded) padded = (n0 + 2) * (n1 + 2);
+  size_t smem = (npt > kRegNodes ? 3 * (size_t)max_plane : 2 * (size_t)padded) *
+                sizeof(float);
+  const size_t tiles = (size_t)(threads / 32) * kTileFloats * sizeof(float);
+  if (tiles > smem) smem = tiles;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      sweep3d_cycle_kernel<kSeeded>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sweep3d_cycle_kernel<kSeeded><<<B, threads, smem, (cudaStream_t)stream>>>(
-      T, S, F, done, n0, n1, n2, c);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// C entries, loaded with ctypes: K1 (floor field F, (B, n0, n1, n2)) and K7
-// (seed scalars, (B, 4) rows (a, b, c, s_src), and the seed radius).
-// `consts` is a host array of 9 floats (h[3], hh[3], w[3]). Each launches
-// on `stream` of `device` and returns the CUDA error code of the set-up
-// calls or of cudaGetLastError() after the launch (0 = launched). Neither
-// synchronises.
-extern "C" int sweep3d_cycle(float* T, const float* S, const float* F,
-                             const uint8_t* done, int B, int n0, int n1,
-                             int n2, const float* consts, int iso, int n_inner,
-                             int threads, int device, void* stream) {
-  return launch<false>(T, S, F, done, B, n0, n1, n2, consts, iso, n_inner,
-                       0.0f, threads, device, stream);
-}
-
-extern "C" int sweep3d_seeded_cycle(float* T, const float* S,
-                                    const float* scal, const uint8_t* done,
-                                    int B, int n0, int n1, int n2,
-                                    const float* consts, int iso, int n_inner,
-                                    float radius, int threads, int device,
-                                    void* stream) {
-  return launch<true>(T, S, scal, done, B, n0, n1, n2, consts, iso, n_inner,
-                      radius, threads, device, stream);
+  // Row-aligned ownership where every plane's rows (n2 for axes 0 and 1,
+  // n1 for the transposed axis 2) divide the thread count.
+  const bool row_q = threads % n2 == 0 && threads % n1 == 0;
+#define K1_LAUNCH(N)                                                         \
+  (row_q ? launch_npt<N, true>(T, S, scal, scratch, done, B, n0, n1, n2, c, \
+                               threads, smem, stream)                      \
+         : launch_npt<N, false>(T, S, scal, scratch, done, B, n0, n1, n2, c, \
+                                threads, smem, stream))
+  switch (npt) {
+    case 1: return K1_LAUNCH(1);
+    case 2: return K1_LAUNCH(2);
+    case 3: return K1_LAUNCH(3);
+    case 4: return K1_LAUNCH(4);
+    case 5: case 6: case 7: case 8: return K1_LAUNCH(8);
+    case 9: case 10: case 11: case 12: return K1_LAUNCH(12);
+    case 13: case 14: case 15: case 16: return K1_LAUNCH(16);
+    case 17: case 18: case 19: case 20: return K1_LAUNCH(20);
+    default: return -1;
+  }
+#undef K1_LAUNCH
 }

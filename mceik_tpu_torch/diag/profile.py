@@ -101,7 +101,6 @@ def _traced(fn, path):
 def _kernels():
     from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
     return {"sweep3d_cycle": cuda_sweep.SWEEP3D,
-            "sweep3d_seeded_cycle": cuda_sweep.SWEEP3D_SEEDED,
             "transport3d_cycle": cuda_transport.TRANSPORT3D,
             "transport3d_large_cycle": cuda_transport.TRANSPORT3D_LARGE,
             "sweep2d_cycle": cuda_sweep.SWEEP2D,

@@ -33,13 +33,14 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
       srcs: ``(B, D)`` physical source coordinates.
       impl: the reference's routes, by default ``solve.solve_route``'s
         choice from ``config.use_pallas`` and the field size:
-        ``"field"`` sweeps CUDA tensors with the CUDA kernel (K1 on a 3-D
-        grid, K3 on a 2-D one), one cycle per iteration; ``"blocked"``
-        does the same with two cycles per iteration (the reference's count
-        on fields above 2 MB); ``"gridbatch"`` sweeps a 3-D batch with K7,
-        which rebuilds the seed floor from four scalars per field instead
-        of reading a floor field; ``"xla"`` is the plain sweep. CPU tensors
-        take each route's plain version.
+        ``"field"`` sweeps CUDA tensors with the CUDA kernel, one cycle per
+        iteration: K1 on a 3-D grid, which computes the seed floor from
+        four scalars per field (no floor field is built), K3 with a floor
+        operand on a 2-D one; ``"blocked"`` does the same with two cycles
+        per iteration (the reference's count on fields above 2 MB);
+        ``"gridbatch"``, 3-D only, is the ``"field"`` route under the name
+        of the reference's seeded route; ``"xla"`` is the plain sweep with
+        a floor operand. CPU tensors take each route's plain version.
 
     Returns ``(B,) + grid.shape`` fp32 traveltimes.
     """
@@ -64,15 +65,13 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
                          f"{grid.shape}")
     s = s.contiguous()
     T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
-    if impl == "gridbatch":
-        src_idx, s_src = source_scalars(s, srcs, grid)
-        floor = torch.cat([src_idx, s_src], dim=1).contiguous()
+    if impl == "xla" or grid.ndim == 2:
+        floor = seed_floor(T0, frozen)
+        cycle = sweep_cycle_plain if impl == "xla" else cuda_sweep.sweep_cycle
+    else:
+        floor = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
         cycle = functools.partial(cuda_sweep.seeded_cycle,
                                   seed_radius=config.seed_radius)
-    else:
-        floor = seed_floor(T0, frozen)
-        cycle = (sweep_cycle_plain if impl == "xla"
-                 else cuda_sweep.sweep_cycle)
     return sweep_solve(T0, floor, s, grid.spacing, config.tol,
                        config.max_iters, config.n_inner, cycle=cycle,
                        cycles_per_iter=CYCLES_PER_ITER[impl])

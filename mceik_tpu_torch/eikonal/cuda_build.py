@@ -43,7 +43,8 @@ def _nvcc(source: Path) -> str:
 
 def plane_smem(n_planes: int) -> Callable[[Tuple[int, ...]], int]:
     """Shared memory of a 3-D kernel that holds ``n_planes`` fp32 buffers of
-    the largest cross-section of an ``(nx, ny, nz)`` grid (K1, K4)."""
+    the largest cross-section of an ``(nx, ny, nz)`` grid (K4, K5; K1's
+    formula is ``cuda_sweep.sweep3d_smem``)."""
     def smem(grid):
         n0, n1, n2 = grid
         return n_planes * 4 * max(n1 * n2, n0 * n2, n0 * n1)
@@ -53,7 +54,7 @@ def plane_smem(n_planes: int) -> Callable[[Tuple[int, ...]], int]:
 def plane_limit(n_planes: int) -> str:
     """The largest cross-section a kernel with ``n_planes`` fp32 plane
     buffers in shared memory takes, as text for its error messages: three
-    planes (K1, K5) fit 19,370 nodes, 139^2 but not 140^2; five (K4) fit
+    planes (K5) fit 19,370 nodes, 139^2 but not 140^2; five (K4) fit
     11,622, 107^2."""
     nodes = MAX_SMEM_BYTES // (4 * n_planes)
     side = math.isqrt(nodes)

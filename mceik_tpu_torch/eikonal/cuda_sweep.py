@@ -1,107 +1,92 @@
-"""CUDA sweep kernels K1 and K7: build, bind and launch the two entry points
-of ``csrc/sweep3d.cu``; and the sweep-cycle dispatch of every batch to its
-kernel (K1 for 3-D fields, K3, ``eikonal/cuda_sweep2d.py``, for 2-D fields;
-K7 for the 3-D gridbatch route).
+"""CUDA sweep kernel K1: build, bind and launch ``csrc/sweep3d.cu``; and the
+sweep-cycle dispatch of every batch to its kernel (K1 for 3-D fields, with
+the seed floor computed in the kernel from four scalars per field; K3,
+``eikonal/cuda_sweep2d.py``, for 2-D fields, with a floor operand).
 
 Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch runs one
 full sweep cycle (axes 0, 1, 2, each forward then backward) on every field
 of a ``(B, nx, ny, nz)`` fp32 batch whose done flag is clear. It replaces
 the Pallas kernel ``sweep_axes012_fused`` (pallas_sweep.py:372) on cube
-grids, and on config 3's non-cube route (n_x == n_y, 48x48x32) the pair
+grids, on config 3's non-cube route (n_x == n_y, 48x48x32) the pair
 ``sweep_axes01_fused`` (pallas_sweep.py:222, call :230) + ``sweep_axis0``
 on axis 2 (:132, call :139) that ``sweep_cycle_pallas_packed`` takes
-there. K7 is the same kernel with the seed floor rebuilt in the kernel
-from four scalars per field (``sweep3d_seeded_cycle``), which replaces
-``sweep_axis0_gridbatch`` (pallas_sweep.py:740, call :762) on the opt-in
-``impl="gridbatch"`` route. The design notes are in the CUDA source.
+there, ``sweep_axis0`` on the blocked 128^3 route, and
+``sweep_axis0_gridbatch`` (pallas_sweep.py:740, call :762) on the
+``impl="gridbatch"`` route: every 3-D route of ``solve_eikonal_batched``
+but the plain one launches it. The design notes are in the CUDA source.
 
 The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` and loaded with ``ctypes`` (``eikonal/cuda_build.py``).
 Nothing is built when this module is imported.
 
-:func:`sweep_cycle` launches the kernel for CUDA tensors and runs the plain
-version, ``solve.sweep_cycle_plain``, for CPU tensors; there is no other
-fallback; :func:`seeded_cycle` does the same for K7 and its plain version
-``solve.sweep_seeded_cycle_plain``. A failed build or launch raises.
+:func:`seeded_cycle` launches K1 for CUDA tensors and runs its plain
+version, ``solve.sweep_seeded_cycle_plain``, for CPU tensors;
+:func:`sweep_cycle` does the same for a floor operand: K3 on 2-D CUDA
+batches, ``solve.sweep_cycle_plain`` on CPU tensors. There is no other
+fallback. A failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
-from mceik_tpu_torch.eikonal.cuda_build import (CSRC, NvccKernel,
+from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
+                                                MAX_THREADS, NvccKernel,
                                                 check_fields, done_flags,
-                                                launch_config, plane_limit,
-                                                plane_smem)
+                                                launch_config, launch_threads)
 from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
 from mceik_tpu_torch.eikonal.solve import (sweep_cycle_plain,
                                            sweep_seeded_cycle_plain)
 
 SOURCE = CSRC / "sweep3d.cu"
-# Shared-memory planes per CTA: a_ax and the plane double-buffered.
-N_PLANES = 3
+# Nodes per thread up to which K1 keeps T, s and the floor in registers and
+# two shared planes (the exchange buffer); above, s takes a third plane.
+REG_NODES = 4
+# Shared memory of one warp's 32 x 33 fp32 transposition tile.
+TILE_BYTES = 32 * 33 * 4
+
+
+def sweep3d_smem(grid) -> int:
+    """K1's shared memory per block for an ``(nx, ny, nz)`` grid: up to
+    ``REG_NODES`` nodes per thread (planes up to 4096 nodes) the largest
+    plane with a one-node halo, double-buffered; above, three planes (the
+    third is the staged s); or, where that is less, one transposition
+    tile per warp (132 KB at 1024 threads), which reuses the same memory
+    between the marches."""
+    n0, n1, n2 = grid
+    plane = max(n1 * n2, n0 * n2, n0 * n1)
+    if plane <= REG_NODES * MAX_THREADS:
+        planes = 2 * 4 * max((n1 + 2) * (n2 + 2), (n0 + 2) * (n2 + 2),
+                             (n0 + 2) * (n1 + 2))
+    else:
+        planes = 3 * 4 * plane
+    return max(planes, launch_threads((1,) + tuple(grid)) // 32 * TILE_BYTES)
+
+
+def sweep3d_limit() -> str:
+    """The largest cross-section K1 takes, as text for its error message."""
+    nodes = MAX_SMEM_BYTES // 12
+    side = math.isqrt(nodes)
+    return (f"K1 holds 2 fp32 planes up to {REG_NODES * MAX_THREADS} nodes "
+            f"per plane and 3 above, so cross-sections of at most {nodes} "
+            f"nodes ({side}^2 but not {side + 1}^2); a larger one needs a "
+            "thread-block-cluster kernel, later work")
 
 
 class Sweep3dKernel(NvccKernel):
-    """K1 built from ``csrc/sweep3d.cu``, with its launch count."""
+    """K1 built from ``csrc/sweep3d.cu`` (or ``source``), with its launch
+    count."""
 
-    SYMBOL = "sweep3d_cycle"
-    # C arguments between n_inner and the launch shape.
-    EXTRA_ARGS: tuple = ()
-
-    def __init__(self):
+    def __init__(self, source: Path = SOURCE):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(SOURCE, self.SYMBOL,
-                         [vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci,
-                          *self.EXTRA_ARGS, ci, ci, vp])
-
-    def __call__(self, T: torch.Tensor, s: torch.Tensor, floor: torch.Tensor,
-                 spacing: Sequence[float], n_inner: int,
-                 done: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One cycle on a copy of ``T`` with the floor field ``floor``;
-        returns the swept batch."""
-        return self._launch(T, s, [("floor", floor)], floor, spacing,
-                            n_inner, done, ())
-
-    def _launch(self, T, s, fields, third, spacing, n_inner, done, extra):
-        """Check the fields, then launch on a copy of ``T`` with ``third``
-        as the entry's third pointer and ``extra`` before the launch shape;
-        returns the swept batch."""
-        dev = check_fields(self.symbol[:-len("_cycle")],
-                           [("T", T), ("s", s)] + fields,
-                           plane_smem(N_PLANES), limit=plane_limit(N_PLANES))
-        B, n0, n1, n2 = T.shape
-        done = done_flags(done, B, dev)
-        if len(spacing) != 3 or n_inner < 0:
-            raise ValueError(f"bad spacing {spacing} or n_inner {n_inner}")
-        h = [float(x) for x in spacing]
-        fn = self.build()
-        out = T.clone()
-        if B == 0:
-            return out
-        consts = (ctypes.c_float * 9)(*h, *[x * x for x in h],
-                                      *[1.0 / (x * x) for x in h])
-        iso = int(len(set(h)) == 1)
-        threads, index, stream = launch_config(T.shape, dev)
-        rc = fn(out.data_ptr(), s.data_ptr(), third.data_ptr(),
-                done.data_ptr(), B, n0, n1, n2, consts, iso, int(n_inner),
-                *extra, threads, index, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
-        self.launches += 1
-        return out
-
-
-class SeededSweep3dKernel(Sweep3dKernel):
-    """K7, the seeded entry point of ``csrc/sweep3d.cu``: K1's cycle with
-    the seed floor rebuilt in the kernel from four scalars per field, with
-    its own launch count."""
-
-    SYMBOL = "sweep3d_seeded_cycle"
-    EXTRA_ARGS = (ctypes.c_float,)  # the seed radius
+        super().__init__(source, "sweep3d_cycle",
+                         [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci,
+                          ctypes.c_float, ci, ci, vp])
 
     def __call__(self, T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
                  spacing: Sequence[float], n_inner: int,
@@ -117,31 +102,57 @@ class SeededSweep3dKernel(Sweep3dKernel):
             raise ValueError(f"scal: need a contiguous float32 ({B}, 4) "
                              f"tensor on {T.device}, got {scal.dtype} "
                              f"{tuple(scal.shape)} on {scal.device}")
-        radius = ctypes.c_float(float(seed_radius) *
-                                max(float(x) for x in spacing))
-        return self._launch(T, s, [], scal, spacing, n_inner, done,
-                            (radius,))
+        dev = check_fields("sweep3d", [("T", T), ("s", s)], sweep3d_smem,
+                           limit=sweep3d_limit())
+        B, n0, n1, n2 = T.shape
+        if n0 * n1 * n2 >= 2 ** 31:
+            raise ValueError(f"grid {(n0, n1, n2)}: K1 indexes a field with "
+                             "32-bit offsets")
+        done = done_flags(done, B, dev)
+        if len(spacing) != 3 or n_inner < 0:
+            raise ValueError(f"bad spacing {spacing} or n_inner {n_inner}")
+        h = [float(x) for x in spacing]
+        fn = self.build()
+        out = T.clone()
+        if B == 0:
+            return out
+        consts = (ctypes.c_float * 9)(*h, *[x * x for x in h],
+                                      *[1.0 / (x * x) for x in h])
+        iso = int(len(set(h)) == 1)
+        radius = ctypes.c_float(float(seed_radius) * max(h))
+        # The axis-2 march's (n2, n0, n1) copies of T and s, per field.
+        scratch = torch.empty((B, 2, n2, n0, n1), dtype=torch.float32,
+                              device=dev)
+        threads, index, stream = launch_config(T.shape, dev)
+        rc = fn(out.data_ptr(), s.data_ptr(), scal.data_ptr(),
+                scratch.data_ptr(), done.data_ptr(), B, n0, n1, n2, consts,
+                iso, int(n_inner), radius, threads, index, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
+        self.launches += 1
+        return out
 
 
 SWEEP3D = Sweep3dKernel()
-SWEEP3D_SEEDED = SeededSweep3dKernel()
 
 
 def sweep_cycle(T: torch.Tensor, s: torch.Tensor, floor: torch.Tensor,
                 spacing: Sequence[float], n_inner: int,
                 done: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One full sweep cycle on the fields whose ``done`` flag is clear.
+    """One full sweep cycle with a floor operand on the fields whose
+    ``done`` flag is clear.
 
-    CUDA tensors go to the kernel, K3 for a ``(B, n0, n1)`` batch and K1
-    for a ``(B, nx, ny, nz)`` one; CPU tensors to the plain version
-    (``solve.sweep_cycle_plain``). Any other device raises.
+    CPU tensors go to the plain version (``solve.sweep_cycle_plain``), a
+    CUDA ``(B, n0, n1)`` batch to K3. K1 takes no floor operand: a CUDA
+    3-D batch goes through :func:`seeded_cycle`, and raises here.
     """
     if T.device.type == "cpu":
         return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
     if T.device.type == "cuda":
         if T.ndim == 3:
             return SWEEP2D(T, s, floor, spacing, n_inner, done)
-        return SWEEP3D(T, s, floor, spacing, n_inner, done)
+        raise ValueError("a CUDA 3-D batch takes seeded_cycle: K1 computes "
+                         "the floor from the (B, 4) source scalars")
     raise ValueError(f"no sweep for device {T.device}")
 
 
@@ -153,7 +164,7 @@ def seeded_cycle(T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
     source scalars and ``seed_radius`` (in units of the largest spacing),
     on the fields whose ``done`` flag is clear.
 
-    CUDA tensors go to K7 (3-D batches only; a 2-D one raises), CPU tensors
+    CUDA tensors go to K1 (3-D batches only; a 2-D one raises), CPU tensors
     to the plain version (``solve.sweep_seeded_cycle_plain``). Any other
     device raises.
     """
@@ -161,6 +172,6 @@ def seeded_cycle(T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
         return sweep_seeded_cycle_plain(T, s, scal, spacing, n_inner, done,
                                         seed_radius=seed_radius)
     if T.device.type == "cuda":
-        return SWEEP3D_SEEDED(T, s, scal, spacing, n_inner, done,
-                              seed_radius=seed_radius)
+        return SWEEP3D(T, s, scal, spacing, n_inner, done,
+                       seed_radius=seed_radius)
     raise ValueError(f"no seeded sweep for device {T.device}")

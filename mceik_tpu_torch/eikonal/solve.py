@@ -4,8 +4,10 @@ plane-sweep solve.
 Counterpart of ``mceik_tpu/eikonal/solve.py``. Everything works on an
 explicit batch of fields ``(B,) + grid.shape``. The plain sweep here is the
 solve the port runs on CPU tensors, and the reference that the CUDA kernels
-(K1 for 3-D and K3 for 2-D batches, ``eikonal/cuda_sweep.py``) are held
-against on the card.
+(K1 for 3-D batches, with the floor rebuilt from the source scalars:
+:func:`sweep_seeded_cycle_plain`; K3 for 2-D batches:
+:func:`sweep_cycle_plain`; ``eikonal/cuda_sweep.py``) are held against on
+the card.
 
 One sweep cycle: for each axis, march the planes low -> high, then
 high -> low. A plane update takes ``a_ax = min(T[i-1], T[i+1])`` (``T[i-1]``
@@ -151,7 +153,7 @@ def seeded_floor_plain(scal: torch.Tensor, shape: Sequence[int],
     index coords and slowness, :func:`source_scalars`): ``s_src * dist``
     where ``dist <= seed_radius * max(h)``, else 0. The same operations as
     ``seed_floor(*seed_source(...))``, so the same bits. The plain version
-    of the floor the CUDA kernel K7 computes in place of a floor operand."""
+    of the floor the CUDA kernel K1 computes in place of a floor operand."""
     D = len(shape)
     dist = _seed_distance(scal[:, :D], shape, spacing)
     s_src = scal[:, D].reshape((-1,) + (1,) * D)
@@ -212,8 +214,9 @@ def sweep_cycle_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
                       done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One full cycle (both directions along every axis) on the fields whose
     ``done`` flag is clear; done fields come back unchanged. This is the
-    plain version of the CUDA kernels ``csrc/sweep3d.cu`` (3-D batches) and
-    ``csrc/sweep2d.cu`` (2-D batches)."""
+    plain version of the CUDA kernel ``csrc/sweep2d.cu`` (K3, 2-D batches),
+    and of ``csrc/sweep3d.cu`` (K1) through
+    :func:`sweep_seeded_cycle_plain`."""
 
     def cycle(Ta, sa, fa):
         for axis in range(T.ndim - 1):
@@ -230,7 +233,7 @@ def sweep_seeded_cycle_plain(T, s, scal, spacing: Sequence[float],
                              *, seed_radius: float) -> torch.Tensor:
     """One cycle with the floor rebuilt from the ``(B, 4)`` source scalars
     (:func:`seeded_floor_plain`), then :func:`sweep_cycle_plain`: the plain
-    version of the CUDA kernel K7 (``csrc/sweep3d.cu``'s seeded entry)."""
+    version of the CUDA kernel K1 (``csrc/sweep3d.cu``)."""
     floor = seeded_floor_plain(scal, T.shape[1:], spacing, seed_radius)
     return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
 
@@ -250,8 +253,10 @@ def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
     iteration and is not swept again (what ``vmap`` of the reference's
     ``while_loop`` gives); the loop ends when every field is done or after
     ``max_cycles`` iterations. ``cycle`` is :func:`sweep_cycle_plain` or a
-    CUDA kernel's wrapper; both take ``(T, s, floor, spacing, n_inner,
-    done)``. One host sync per iteration.
+    CUDA kernel's wrapper; each takes ``(T, s, floor, spacing, n_inner,
+    done)``, where ``floor`` is a floor field or, for the seeded cycles
+    (K1, :func:`sweep_seeded_cycle_plain`), the ``(B, 4)`` source scalars.
+    One host sync per iteration.
     """
     T = T0
     done = torch.zeros(T0.shape[0], dtype=torch.bool, device=T0.device)

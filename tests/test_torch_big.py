@@ -212,18 +212,18 @@ def test_blocked_route_counts_two_cycles_per_iteration(monkeypatch):
     grid = Grid(shape, (1.0, 1.0, 1.0))
     assert solve_route(shape, "on", "cpu") == "blocked"
     fwd, tr = [], []
-    sweep_cycle, transport_cycle = (cuda_sweep.sweep_cycle,
-                                    cuda_transport.transport_cycle)
+    seeded_cycle, transport_cycle = (cuda_sweep.seeded_cycle,
+                                     cuda_transport.transport_cycle)
 
-    def rec_sweep(T, s_, f, sp, n, done):
+    def rec_sweep(T, s_, scal, sp, n, done, *, seed_radius):
         fwd.append(done.clone())
-        return sweep_cycle(T, s_, f, sp, n, done)
+        return seeded_cycle(T, s_, scal, sp, n, done, seed_radius=seed_radius)
 
     def rec_transport(lam, g, ws, n, done):
         tr.append(done.clone())
         return transport_cycle(lam, g, ws, n, done)
 
-    monkeypatch.setattr(cuda_sweep, "sweep_cycle", rec_sweep)
+    monkeypatch.setattr(cuda_sweep, "seeded_cycle", rec_sweep)
     monkeypatch.setattr(cuda_transport, "transport_cycle", rec_transport)
     s = torch.from_numpy(_smooth_slowness(shape, 5)).requires_grad_(True)
     srcs = torch.tensor([[2.0, 3.0, 4.0], [7.0, 1.0, 6.0]])
@@ -255,15 +255,26 @@ def test_transport_kernel_choice_by_shape(grid, kernel):
 
 
 def test_plane_limits_and_128_cube_launch():
-    """The limits the messages state (three planes: 19,370 nodes, 139^2;
-    five: 11,622, 107^2), a grid no kernel takes, and config 5's launch:
-    one CTA of 1024 threads per 128^3 field, 192 KB of shared memory for K1
-    and K5 (K4 would need 320 KB)."""
+    """The limits the messages state (K1: two planes up to 4096 nodes, three
+    above, so 19,370 nodes, 139^2; K5's three planes: the same; K4's five:
+    11,622, 107^2), a grid no kernel takes, and config 5's launch: one CTA
+    of 1024 threads per 128^3 field, 192 KB of shared memory for K1 and K5
+    (K4 would need 320 KB); config 2's 64^3 takes K1 in 132 KB."""
     assert plane_limit(3).startswith("3 fp32 planes fit cross-sections of "
                                      "at most 19370 nodes (139^2 but not "
                                      "140^2)")
+    assert cuda_sweep.sweep3d_limit().startswith(
+        "K1 holds 2 fp32 planes up to 4096 nodes per plane and 3 above, so "
+        "cross-sections of at most 19370 nodes (139^2 but not 140^2)")
     assert "11622 nodes (107^2 but not 108^2)" in plane_limit(5)
     c5 = (128, 128, 128)
+    assert cuda_sweep.sweep3d_smem(c5) == 196608 <= MAX_SMEM_BYTES
+    # Below 11,264 nodes per plane the 32 warps' transposition tiles
+    # (132 KB) outweigh the planes; tiny grids launch fewer warps.
+    assert cuda_sweep.sweep3d_smem((64, 64, 64)) == 135168
+    assert cuda_sweep.sweep3d_smem((8, 8, 8)) == 2 * 32 * 33 * 4
+    assert cuda_sweep.sweep3d_smem((8, 107, 107)) == 3 * 4 * 107 * 107
+    assert cuda_sweep.sweep3d_smem((8, 139, 139)) <= MAX_SMEM_BYTES
     assert plane_smem(3)(c5) == 196608 <= MAX_SMEM_BYTES
     assert plane_smem(5)(c5) == 327680 > MAX_SMEM_BYTES
     assert launch_threads((96,) + c5) == 1024
@@ -272,8 +283,9 @@ def test_plane_limits_and_128_cube_launch():
     # The wrappers check shared memory before the device, so the message
     # shows on CPU tensors too.
     big = torch.zeros((1, 8, 140, 140))
-    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
-        cuda_sweep.SWEEP3D(big, big, big, (1.0, 1.0, 1.0), 2)
+    with pytest.raises(ValueError, match="K1 holds .*139\\^2 but not 140\\^2"):
+        cuda_sweep.SWEEP3D(big, big, torch.zeros((1, 4)), (1.0, 1.0, 1.0), 2,
+                           seed_radius=3.0)
     with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
         cuda_transport.TRANSPORT3D_LARGE(big, big, (big, big, big), 2)
     mid = torch.zeros((1, 8, 120, 120))

@@ -1,5 +1,5 @@
-"""Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1 and
-K7, ``csrc/transport3d.cu``, K4 and K5, ``csrc/sweep2d.cu``, K3, and
+"""Tests of the CUDA kernels (``mceik_tpu_torch/csrc/sweep3d.cu``, K1,
+``csrc/transport3d.cu``, K4 and K5, ``csrc/sweep2d.cu``, K3, and
 ``csrc/transport2d.cu``, K6) against their plain PyTorch versions. They need an NVIDIA GPU with nvcc and skip elsewhere. This file imports no JAX, so it runs on a machine without
 it; there, skip tests/conftest.py (which configures JAX):
 
@@ -18,7 +18,9 @@ from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
                                            seed_source, source_scalars,
-                                           sweep_cycle_plain, sweep_solve)
+                                           sweep_cycle_plain,
+                                           sweep_seeded_cycle_plain,
+                                           sweep_solve)
 from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.model.params import slowness_from_u
 
@@ -36,30 +38,40 @@ def _batch(dev, shape, spacing, srcs, seed=4, amp=0.3):
     g = Grid(shape, spacing)
     s = slowness_from_u(u, g, torch.tensor(1.0)).to(dev)
     srcs = torch.tensor(srcs, dtype=torch.float32, device=dev)
-    T0, frozen = seed_source(s, srcs, g, 3.0)
-    return g, s, srcs, T0, seed_floor(T0, frozen)
+    T0, _ = seed_source(s, srcs, g, 3.0)
+    return g, s, srcs, T0, torch.cat(source_scalars(s, srcs, g),
+                                     dim=1).contiguous()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,spacing", [
     ((24, 20, 16), (1.0, 1.2, 0.9)),    # weighted local solve, non-cube
     ((32, 32, 32), (1.0, 1.0, 1.0)),    # closed isotropic form
+    ((48, 48, 32), (1.0, 1.0, 1.0)),    # config 3: 3 and 2 nodes per thread
+    ((33, 31, 17), (1.0, 1.0, 1.1)),    # planes of 1023, 561, 527 nodes
+    ((33, 32, 17), (1.0, 1.0, 1.0)),    # a 1056-node plane: 2 slots, 1 partial
+    ((40, 70, 64), (1.0, 1.0, 1.0)),    # 4480-node plane: s staged, 5 slots
 ])
 def test_kernel_cycle_matches_plain(dev, shape, spacing):
-    """One launch equals one plain cycle (the same fp32 operations: bar
-    1e-4), and a done field passes through untouched."""
-    g, s, _, T0, fl = _batch(dev, shape, spacing,
-                             [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
-                              [12.0, 18.0, 9.0]])
+    """One launch equals one plain seeded cycle bit for bit (the same fp32
+    operations in the same order), for n_inner 2 and 1, and a done field
+    passes through untouched."""
+    g, s, _, T0, scal = _batch(dev, shape, spacing,
+                               [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                                [12.5, 17.3, 9.1]])
     done = torch.tensor([False, True, False], device=dev)
     launches = cuda_sweep.SWEEP3D.launches
-    out = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2, done)
+    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, done,
+                                  seed_radius=3.0)
     torch.cuda.synchronize()
     assert cuda_sweep.SWEEP3D.launches == launches + 1
-    ref = sweep_cycle_plain(T0, s, fl, g.spacing, 2, done)
-    assert float((out - ref).abs().max()) <= 1e-4
+    assert torch.equal(out, sweep_seeded_cycle_plain(
+        T0, s, scal, g.spacing, 2, done, seed_radius=3.0))
     assert torch.equal(out[1], T0[1])
     assert float((out[0] - T0[0]).abs().max()) > 1.0
+    assert torch.equal(
+        cuda_sweep.SWEEP3D(T0, s, scal, g.spacing, 1, seed_radius=2.0),
+        sweep_seeded_cycle_plain(T0, s, scal, g.spacing, 1, seed_radius=2.0))
 
 
 @pytest.mark.cuda
@@ -82,19 +94,22 @@ def test_kernel_solve_matches_plain_solve(dev):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_checks_inputs(dev):
-    g, s, _, T0, fl = _batch(dev, (8, 8, 8), (1.0, 1.0, 1.0),
-                             [[1.0, 2.0, 3.0]])
+    g, s, _, T0, scal = _batch(dev, (8, 8, 8), (1.0, 1.0, 1.0),
+                               [[1.0, 2.0, 3.0]])
     k = cuda_sweep.SWEEP3D
     with pytest.raises(ValueError, match="float32"):
-        k(T0.double(), s, fl, g.spacing, 2)
+        k(T0.double(), s, scal, g.spacing, 2, seed_radius=3.0)
     with pytest.raises(ValueError, match="contiguous"):
-        k(T0.transpose(1, 2), s, fl, g.spacing, 2)
+        k(T0.transpose(1, 2), s, scal, g.spacing, 2, seed_radius=3.0)
     with pytest.raises(ValueError, match="shared"):
         big = torch.zeros((1, 8, 140, 140), device=dev)
-        k(big, big, big, g.spacing, 2)
+        k(big, big, scal, g.spacing, 2, seed_radius=3.0)
+    with pytest.raises(ValueError, match="seeded_cycle"):
+        cuda_sweep.sweep_cycle(T0, s, T0, g.spacing, 2)
     np.testing.assert_array_equal(
-        k(T0, s, fl, g.spacing, 2, torch.ones(1, dtype=torch.bool,
-                                                device=dev)).cpu().numpy(),
+        k(T0, s, scal, g.spacing, 2, torch.ones(1, dtype=torch.bool,
+                                                 device=dev),
+          seed_radius=3.0).cpu().numpy(),
         T0.cpu().numpy())
 
 
@@ -256,18 +271,19 @@ def _c3_batch(dev, B=128, seed=8):
 @pytest.mark.cuda
 def test_kernels_at_config3_batch(dev):
     """K1 and K4 on config 3's 128 x 48x48x32 batch: the wrapper's checks
-    pass (27.6 KB and 46 KB of shared memory, 1024 threads for the 2304-node
-    planes); one K1 cycle and a solve at tol 1e-3 equal the plain ones
-    (bar 1e-4), one K4 cycle equals the plain one (bar 1e-5 of max|plain|)."""
+    pass (132 KB and 46 KB of shared memory, 1024 threads for the 2304-node
+    planes); one K1 cycle equals the plain one bit for bit and a solve at
+    tol 1e-3 the plain solve (bar 1e-4), one K4 cycle equals the plain one
+    (bar 1e-5 of max|plain|)."""
     from mceik_tpu_torch.eikonal.cuda_build import launch_threads, plane_smem
-    assert plane_smem(3)(C3_SHAPE) == 27648
+    assert cuda_sweep.sweep3d_smem(C3_SHAPE) == 135168
     assert plane_smem(5)(C3_SHAPE) == 46080
     assert launch_threads((128,) + C3_SHAPE) == 1024
     g, s, srcs, T0, frozen = _c3_batch(dev)
-    fl = seed_floor(T0, frozen)
-    out = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2)
-    ref = sweep_cycle_plain(T0, s, fl, g.spacing, 2)
-    assert float((out - ref).abs().max()) <= 1e-4
+    scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
+    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, seed_radius=3.0)
+    assert torch.equal(out, sweep_seeded_cycle_plain(T0, s, scal, g.spacing,
+                                                     2, seed_radius=3.0))
     cfg = EikonalConfig(tol=1e-3, max_iters=20)
     T = solve_eikonal_batched(s, srcs, g, cfg)
     T_p = solve_eikonal_batched(s, srcs, g, EikonalConfig(
@@ -311,15 +327,18 @@ def test_large_transport_kernel_equals_plain_and_k4(dev, shape, spacing):
 @pytest.mark.cuda
 def test_kernels_at_128_cube(dev):
     """Config 5's 128^3 fields: the transport dispatch picks K5 (K4's five
-    planes need 320 KB), K1 takes them in 192 KB; one K1 cycle and one K5
-    cycle on two fields equal the plain cycles bit for bit."""
+    planes need 320 KB), K1 takes them in 192 KB (16 nodes per thread, s
+    staged); one K1 cycle and one K5 cycle on two fields equal the plain
+    cycles bit for bit."""
     shape = (128, 128, 128)
     assert cuda_transport.transport_kernel_for(shape) is \
         cuda_transport.TRANSPORT3D_LARGE
-    g, s, srcs, T0, fl = _batch(dev, shape, (1.0, 1.0, 1.0),
-                                [[10.0, 20.0, 100.0], [64.0, 64.0, 3.0]])
-    T1 = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2)
-    assert torch.equal(T1, sweep_cycle_plain(T0, s, fl, g.spacing, 2))
+    assert cuda_sweep.sweep3d_smem(shape) == 196608
+    g, s, srcs, T0, scal = _batch(dev, shape, (1.0, 1.0, 1.0),
+                                  [[10.0, 20.0, 100.0], [64.0, 64.0, 3.0]])
+    T1 = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, seed_radius=3.0)
+    assert torch.equal(T1, sweep_seeded_cycle_plain(T0, s, scal, g.spacing,
+                                                    2, seed_radius=3.0))
     T = solve_eikonal_batched(s, srcs, g, EikonalConfig(tol=1e-3,
                                                         max_iters=20))
     _, frozen = seed_source(s, srcs, g, 3.0)
@@ -410,28 +429,20 @@ def test_transport2d_wrapper_checks_inputs(dev):
     ((32, 32, 32), (1.0, 1.0, 1.0)),    # closed isotropic form
 ])
 def test_seeded_cycle_matches_k1(dev, shape, spacing):
-    """One K7 launch, its seed floor rebuilt from four scalars per field,
-    equals one K1 launch with the ``seed_floor`` operand and the plain
-    cycle bit for bit; a done field passes through; the gridbatch solve
-    equals the field route's."""
-    g, s, srcs, T0, fl = _batch(dev, shape, spacing,
-                                [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
-                                 [12.5, 17.3, 9.1]])
-    src_idx, s_src = source_scalars(s, srcs, g)
-    scal = torch.cat([src_idx, s_src], dim=1).contiguous()
-    done = torch.tensor([False, True, False], device=dev)
-    launches = cuda_sweep.SWEEP3D_SEEDED.launches
-    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, done,
-                                  seed_radius=3.0)
-    torch.cuda.synchronize()
-    assert cuda_sweep.SWEEP3D_SEEDED.launches == launches + 1
-    assert torch.equal(out, cuda_sweep.SWEEP3D(T0, s, fl, g.spacing, 2, done))
-    assert torch.equal(out, sweep_cycle_plain(T0, s, fl, g.spacing, 2, done))
-    assert torch.equal(out[1], T0[1])
+    """The gridbatch route is the field route: its solve equals the
+    ``"field"`` solve bit for bit, both through K1, and the plain solve
+    within 1e-4; the wrapper refuses ``scal`` rows of the wrong width."""
+    g, s, srcs, T0, scal = _batch(dev, shape, spacing,
+                                  [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
+                                   [12.5, 17.3, 9.1]])
     cfg = EikonalConfig(tol=1e-5, max_iters=100)
-    assert torch.equal(
-        solve_eikonal_batched(s, srcs, g, cfg, impl="gridbatch"),
-        solve_eikonal_batched(s, srcs, g, cfg, impl="field"))
+    launches = cuda_sweep.SWEEP3D.launches
+    T_gb = solve_eikonal_batched(s, srcs, g, cfg, impl="gridbatch")
+    assert cuda_sweep.SWEEP3D.launches > launches
+    assert torch.equal(T_gb, solve_eikonal_batched(s, srcs, g, cfg,
+                                                   impl="field"))
+    T_p = solve_eikonal_batched(s, srcs, g, cfg, impl="xla")
+    assert float((T_gb - T_p).abs().max()) <= 1e-4
     with pytest.raises(ValueError, match="scal"):
-        cuda_sweep.SWEEP3D_SEEDED(T0, s, scal[:, :3].contiguous(), g.spacing,
-                                  2, seed_radius=3.0)
+        cuda_sweep.SWEEP3D(T0, s, scal[:, :3].contiguous(), g.spacing, 2,
+                           seed_radius=3.0)

@@ -27,7 +27,8 @@ from mceik_tpu_torch.eikonal import cuda_sweep
 from mceik_tpu_torch.eikonal import godunov as tgod
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                           seed_source, sweep_cycle_plain)
+                                           seed_source, source_scalars,
+                                           sweep_cycle_plain)
 from mceik_tpu_torch.grid import Grid
 
 
@@ -140,8 +141,9 @@ def test_plain_solve_matches_pallas_fused012_interpret():
 
 def test_cuda_sweep_cpu_dispatch():
     """The kernel module imports without nvcc or a card; a CPU tensor goes
-    to the plain version and leaves the launch counter at 0; the kernel
-    itself refuses CPU tensors; a Pallas-only mode is refused; without nvcc
+    to the plain version and leaves the launch counter at 0 (the seeded
+    cycle's plain version, the same bits); the kernel itself refuses CPU
+    tensors; a Pallas-only mode is refused; without nvcc
     the build raises."""
     shape = (6, 5, 4)
     rng = np.random.default_rng(3)
@@ -156,8 +158,13 @@ def test_cuda_sweep_cpu_dispatch():
         out.numpy(), sweep_cycle_plain(T0, s, fl, g.spacing, 2, done).numpy())
     np.testing.assert_array_equal(out[1].numpy(), T0[1].numpy())
     assert float((out[0] - T0[0]).abs().max()) > 1.0
+    scal = torch.cat(source_scalars(s, torch.tensor([[1.0, 2.0, 3.0]] * 2),
+                                    g), dim=1).contiguous()
+    assert torch.equal(cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2,
+                                               done, seed_radius=1.0), out)
+    assert cuda_sweep.SWEEP3D.launches == 0
     with pytest.raises(ValueError):
-        cuda_sweep.SWEEP3D(T0, s, fl, g.spacing, 2, done)
+        cuda_sweep.SWEEP3D(T0, s, scal, g.spacing, 2, done, seed_radius=1.0)
     with pytest.raises(ValueError):
         solve_eikonal_batched(s[0], torch.tensor([[1.0, 2.0, 3.0]]), g,
                               EikonalConfig(use_pallas="interpret"))

@@ -1,13 +1,14 @@
 """The port's gridbatch route on the CPU: ``solve_eikonal_batched(...,
-impl="gridbatch")``, whose cycle on the card is the CUDA kernel K7
-(``csrc/sweep3d.cu``'s seeded entry point), the counterpart of the TPU
-kernel ``sweep_axis0_gridbatch`` (pallas_sweep.py:740). K7 rebuilds the
-seed floor from four scalars per field; its plain version
-(``solve.seeded_floor_plain`` then ``solve.sweep_cycle_plain``) is held
-here against ``seed_floor(*seed_source(...))`` bit for bit and, through the
-whole solve, against JAX's gridbatch in interpret mode, mirroring
+impl="gridbatch")``, the counterpart of the TPU kernel
+``sweep_axis0_gridbatch`` (pallas_sweep.py:740), is the ``"field"`` route:
+on the card both sweep with K1 (``csrc/sweep3d.cu``), which rebuilds the
+seed floor from four scalars per field as the TPU's gridbatch kernel does.
+Its plain version (``solve.seeded_floor_plain`` then
+``solve.sweep_cycle_plain``) is held here against
+``seed_floor(*seed_source(...))`` bit for bit and, through the whole solve,
+against JAX's gridbatch in interpret mode, mirroring
 tests/test_pallas_sweep.py's gridbatch tests. Inputs are made with numpy
-from seeds; tolerances are stated per test. K7 itself is tested on the card
+from seeds; tolerances are stated per test. K1 itself is tested on the card
 in test_torch_cuda.py."""
 
 import os
@@ -91,9 +92,12 @@ def test_gridbatch_matches_jax_gridbatch_interpret():
     cfg = EikonalConfig(tol=1e-5, max_iters=60)
     T = solve_eikonal_batched(s, srcs, GRID, cfg, impl="gridbatch")
     np.testing.assert_allclose(T.numpy(), ref, atol=2e-3)
-    # The seeded floor is the floor operand's: the route equals "field".
+    # The gridbatch route is the field route, and the seeded floor is the
+    # floor operand's: it equals "field" and the plain "xla" route.
     assert torch.equal(T, solve_eikonal_batched(s, srcs, GRID, cfg,
                                                 impl="field"))
+    assert torch.equal(T, solve_eikonal_batched(s, srcs, GRID, cfg,
+                                                impl="xla"))
 
 
 def test_done_field_passes_through_unswept():
@@ -115,7 +119,7 @@ def test_done_field_passes_through_unswept():
 
 def test_gridbatch_refusals():
     """``impl="gridbatch"`` on a 2-D grid raises ValueError, as the
-    reference asserts (pallas_sweep.py:697); an unknown impl raises; K7's
+    reference asserts (pallas_sweep.py:697); an unknown impl raises; K1's
     wrapper refuses CPU tensors and a 2-D batch; without nvcc its build
     raises."""
     g2 = Grid((9, 9), (1.0, 1.0))
@@ -127,12 +131,31 @@ def test_gridbatch_refusals():
                               impl="packed")
     T = torch.zeros((2,) + GRID.shape)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_sweep.SWEEP3D_SEEDED(T, T, torch.zeros((2, 4)), GRID.spacing, 2,
+        cuda_sweep.SWEEP3D(T, T, torch.zeros((2, 4)), GRID.spacing, 2,
                                   seed_radius=3.0)
     with pytest.raises(ValueError, match="\\(B, nx, ny, nz\\)"):
-        cuda_sweep.SWEEP3D_SEEDED(T[:, 0], T[:, 0], torch.zeros((2, 4)),
+        cuda_sweep.SWEEP3D(T[:, 0], T[:, 0], torch.zeros((2, 4)),
                                   (1.0, 1.0), 2, seed_radius=3.0)
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
-            cuda_sweep.SeededSweep3dKernel().build()
+            cuda_sweep.Sweep3dKernel().build()
+
+
+@pytest.mark.parametrize("scal", [
+    torch.zeros((2, 3)),                          # wrong width
+    torch.zeros((3, 4)),                          # wrong field count
+    torch.zeros((2, 4), dtype=torch.float64),     # wrong dtype
+    torch.zeros((4, 2)).t(),                      # not contiguous
+    torch.zeros((2, 4), device="meta"),           # another device than T
+])
+def test_wrapper_refuses_bad_scal_before_build(scal, monkeypatch):
+    """K1's wrapper checks the (B, 4) source scalars before anything is
+    built or launched: a wrong shape, dtype, layout or device raises
+    ValueError naming ``scal``, and the build is never called."""
+    k = cuda_sweep.Sweep3dKernel()
+    monkeypatch.setattr(k, "build", lambda: pytest.fail("built"))
+    T = torch.zeros((2,) + GRID.shape)
+    with pytest.raises(ValueError, match="scal"):
+        k(T, T, scal, GRID.spacing, 2, seed_radius=3.0)
+    assert k.launches == 0
