@@ -22,12 +22,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    shapes and on edge cases (bar: bit for bit, ``torch.equal``, one cycle
    against ``sweep_seeded_cycle_plain`` and whole solves against the plain
    route's);
-4. K4 against its plain version (bar: max abs difference <= 1e-5 of the
-   plain version's max abs): the main-path batch (16 chains x 8 sources of
-   64^3, cotangents of the config-2 log-likelihood), an odd anisotropic
-   non-cube batch, and a mixed batch with a zero, contractive and divergent
-   field (the divergent one must come back all NaN, the others untouched);
-   and K5 forced on the main-path batch against K4 (bar as K4's);
+4. K4 against its plain version (bar: bit for bit, compared as int32 so
+   that NaN and signed zeros count; one cycle and a whole solve): the
+   main-path batch (16 chains x 8 sources of 64^3, cotangents of the
+   config-2 log-likelihood), an odd anisotropic non-cube batch, and a mixed
+   batch with a zero, contractive and divergent field (the divergent one
+   must come back all NaN, the others finite); and K5 forced on the
+   main-path batch against K4 (bar as K4's);
 5. the logpost gradient of 16 chains at config-2 width through K1 + K4
    against the same gradient through the plain solves on the card (bar:
    1e-5 of its max abs), and against a central finite difference along one
@@ -63,7 +64,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``sweep_axes01_fused`` + ``sweep_axis0``): K1 one cycle and a solve at
    the config's tol against the plain versions (bar: bit for bit, cycles
    per solve printed), K4 one cycle and a solve with cotangents of config
-   3's joint log-likelihood (bar 1e-5 of the plain max abs);
+   3's joint log-likelihood (bar: bit for bit, as K4's above);
 12. the joint gradient of 8 chains (u, hypo_raw, t0) through K1 + K4
    against the plain solves on the card (bar 1e-5 of each leaf's max abs)
    and against a central finite difference along one random direction of
@@ -86,7 +87,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (cycles counted, and its error to the field converged without the
    ``max_iters``), K5
    one cycle with cotangents of config 5's joint log-likelihood against the
-   plain cycle (bar 1e-5 of its max abs) and a solve (cycles counted);
+   plain cycle (bar: bit for bit, as K4's) and a solve (cycles counted);
 16. config 5's joint NUTS with spike-slab noise through
    ``mceik_tpu_torch.cli.main(["run", "configs/c5_pod_nuts.json", ...])``
    at full width (128^3 grid, 16^3 basis, 32 events, 24 stations,
@@ -150,7 +151,6 @@ C5_CONFIG = os.path.join(REPO, "configs", "c5_pod_nuts.json")
 K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
 LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
 SMC_STAGES = 3      # c4 ladder cap (depth cut)
-K4_REL_BAR = 1e-5   # K4 vs plain, max abs difference / max abs plain
 GRAD_REL_BAR = 1e-5  # kernel vs plain gradient, max abs diff / max abs
 FD_BAR = 0.1        # gradient vs central finite difference, relative
 SOLVE_TOL = 1e-5    # solver tolerance of the K1 comparison solves
@@ -530,24 +530,30 @@ def main() -> int:
     if not analytic < 0.1:
         raise RuntimeError(f"c: homogeneous solve off the analytic ({analytic})")
 
-    # 4. K4 vs plain, on the card.
+    # 4. K4 vs plain, on the card: bit for bit (as int32 words, so NaN
+    # and signed zeros count), finite where the reference is.
     def k4_check(label, out_k, out_p, finite_fields=None, name="K4"):
         sel = slice(None) if finite_fields is None else finite_fields
         scale = float(out_p[sel].abs().max())
         err = float((out_k[sel] - out_p[sel]).abs().max())
-        print(f"{name} compare {label}: max|kernel-reference| = {err:.3e} "
-              f"(max|reference| {scale:.3e})")
-        if not bool(torch.isfinite(out_k[sel]).all()) or \
-                not err <= K4_REL_BAR * scale:
-            raise RuntimeError(f"{name} {label}: kernel disagrees with its "
-                               f"reference ({err} vs bar {K4_REL_BAR * scale})")
+        same = torch.equal(out_k.contiguous().view(torch.int32),
+                           out_p.contiguous().view(torch.int32))
+        print(f"{name} compare {label}: bit for bit {same}, "
+              f"max|kernel-reference| = {err:.3e} (max|reference| "
+              f"{scale:.3e})")
+        if not bool(torch.isfinite(out_k[sel]).all()) or not same:
+            raise RuntimeError(f"{name} {label}: kernel differs from its "
+                               f"reference ({err})")
         errs["transport3d_cycle" if name == "K4"
              else "transport3d_large_cycle"].append(err)
 
     def k4_solve_pair(label, g, ws, tol, max_cycles):
+        # The gradient's path: the ring of g and the weights kept through
+        # the solve.
         launches0 = k4.launches
         lam_k, ms_sk = _timed(lambda: transport_solve(
-            g, ws, tol, max_cycles, 2, cycle=cuda_transport.transport_cycle))
+            g, ws, tol, max_cycles, 2,
+            cycle=cuda_transport.solve_cycle(g, ws)))
         if k4.launches == launches0:
             raise RuntimeError(f"K4 {label}: the kernel was not launched")
         lam_p, ms_sp = _timed(lambda: transport_solve(g, ws, tol, max_cycles, 2))
@@ -575,9 +581,19 @@ def main() -> int:
         raise RuntimeError("K4 cycle: the kernel was not launched")
     lam1_p, ms_k4_plain = _timed(lambda: transport_cycle_plain(
         g_a, g_a, ws_a, cfg.eikonal.n_inner, done), reps=1)
+    # The same cycle on a ring kept from cycle to cycle, as in a solve: the
+    # first call fills it with g and the weights, the later ones copy lam.
+    ring_a = k4.solve_ring(g_a.shape, dev)
+    _, ms_k4_kept = _timed(lambda: k4(
+        g_a, g_a, ws_a, cfg.eikonal.n_inner, done, ring=ring_a), reps=10)
+    lam1_kept = k4(g_a, g_a, ws_a, cfg.eikonal.n_inner, done, ring=ring_a)
+    del ring_a
     print(f"K4 one cycle, B={g_a.shape[0]} grid={grid.shape}: ms per launch: "
-          f"kernel {ms_k4:.3f}, plain {ms_k4_plain:.3f}")
+          f"kernel {ms_k4:.3f} (on a ring kept from cycle to cycle, as in a "
+          f"solve: {ms_k4_kept:.3f}), plain {ms_k4_plain:.3f}")
     k4_check("a (main-path batch, one cycle)", lam1_k, lam1_p)
+    k4_check("a (main-path batch, one cycle on a kept ring)", lam1_kept,
+             lam1_p)
     k4_check("a (main-path batch, solve)",
              *k4_solve_pair("a", g_a, ws_a, cfg.eikonal.tol,
                             cfg.eikonal.max_iters))
@@ -616,9 +632,11 @@ def main() -> int:
                        torch.ones_like(g_rand[:1])])
     active_k = []
 
+    cycle_c = cuda_transport.solve_cycle(g_mix, ws_c)
+
     def recording_k4(lam, g, ws, n_inner, done):
         active_k.append((~done).clone())
-        return cuda_transport.transport_cycle(lam, g, ws, n_inner, done)
+        return cycle_c(lam, g, ws, n_inner, done)
 
     lam_ck = transport_solve(g_mix, ws_c, 1e-6, 30, 2, cycle=recording_k4)
     lam_cp = transport_solve(g_mix, ws_c, 1e-6, 30, 2)
@@ -630,7 +648,7 @@ def main() -> int:
         raise RuntimeError("K4 c: the divergent field is not all NaN")
     if per_field[0] != 1 or not bool((lam_ck[0] == 0).all()):
         raise RuntimeError("K4 c: the zero field did not finish in one cycle")
-    k4_check("c (mixed, the three finite fields)", lam_ck, lam_cp,
+    k4_check("c (mixed, the divergent field NaN in both)", lam_ck, lam_cp,
              finite_fields=slice(0, 3))
 
     # 5. The gradient on the card: K1 + K4 against the plain solves.

@@ -228,15 +228,17 @@ def transport_solve_batched(g: torch.Tensor, T: torch.Tensor, s_b: torch.Tensor,
     origins (:func:`batch_weights`). ``impl`` is the forward solve's route
     (``solve.solve_route``): ``"xla"`` takes the plain cycle, every other
     route the CUDA kernel for CUDA tensors (K4 or K5 for 3-D fields, K6 for
-    2-D ones) and the plain cycle for CPU tensors, with the route's cycles
-    per iteration (two on ``"blocked"``).
+    2-D ones; ``cuda_transport.solve_cycle``, which keeps K4's ring of g and
+    the weights through the solve) and the plain cycle for CPU tensors, with
+    the route's cycles per iteration (two on ``"blocked"``).
     """
     # The kernels' modules import this one for the plain cycle.
     from mceik_tpu_torch.eikonal import cuda_transport
 
     ws = batch_weights(T, s_b, srcs, grid, config.seed_radius)
+    g = g.contiguous()
     cycle = (transport_cycle_plain if impl == "xla"
-             else cuda_transport.transport_cycle)
-    return transport_solve(g.contiguous(), ws, config.tol, config.max_iters,
+             else cuda_transport.solve_cycle(g, ws))
+    return transport_solve(g, ws, config.tol, config.max_iters,
                            config.n_inner, cycle=cycle,
                            cycles_per_iter=CYCLES_PER_ITER[impl])

@@ -41,36 +41,48 @@ def _nvcc(source: Path) -> str:
     return path
 
 
+def max_plane_nodes(grid) -> int:
+    """Nodes of the largest cross-section of an ``(nx, ny, nz)`` grid."""
+    n0, n1, n2 = grid
+    return max(n1 * n2, n0 * n2, n0 * n1)
+
+
 def plane_smem(n_planes: int) -> Callable[[Tuple[int, ...]], int]:
-    """Shared memory of a 3-D kernel that holds ``n_planes`` fp32 buffers of
-    the largest cross-section of an ``(nx, ny, nz)`` grid (K4, K5; K1's
-    formula is ``cuda_sweep.sweep3d_smem``)."""
+    """Shared memory of a 3-D transport kernel that holds ``n_planes`` fp32
+    buffers of the largest cross-section of an ``(nx, ny, nz)`` grid, each
+    with a one-node halo (K4: 11, K5: 3; K1's formula is
+    ``cuda_sweep.sweep3d_smem``)."""
     def smem(grid):
         n0, n1, n2 = grid
-        return n_planes * 4 * max(n1 * n2, n0 * n2, n0 * n1)
+        return n_planes * 4 * max((n1 + 2) * (n2 + 2), (n0 + 2) * (n2 + 2),
+                                  (n0 + 2) * (n1 + 2))
     return smem
 
 
-def plane_limit(n_planes: int) -> str:
-    """The largest cross-section a kernel with ``n_planes`` fp32 plane
-    buffers in shared memory takes, as text for its error messages: three
-    planes (K5) fit 19,370 nodes, 139^2 but not 140^2; five (K4) fit
-    11,622, 107^2."""
-    nodes = MAX_SMEM_BYTES // (4 * n_planes)
-    side = math.isqrt(nodes)
-    return (f"{n_planes} fp32 planes fit cross-sections of at most {nodes} "
-            f"nodes ({side}^2 but not {side + 1}^2); a larger one needs a "
-            "thread-block-cluster kernel, later work")
+def plane_limit(n_planes: int, max_nodes: int) -> str:
+    """The largest square cross-section a 3-D transport kernel with
+    ``n_planes`` haloed fp32 plane buffers in shared memory and at most
+    ``max_nodes`` nodes per plane takes, as text for its error messages:
+    eleven planes and 4096 nodes (K4) take 64^2, three planes and 20,480
+    nodes (K5) 137^2."""
+    side = min(math.isqrt(MAX_SMEM_BYTES // (4 * n_planes)) - 2,
+               math.isqrt(max_nodes))
+    return (f"{n_planes} fp32 planes with a one-node halo and at most "
+            f"{max_nodes} nodes per plane ({max_nodes // MAX_THREADS} per "
+            f"thread) take square cross-sections up to {side}^2 but not "
+            f"{side + 1}^2")
 
 
 def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int],
-                 ndim: int = 3, limit: str = "") -> torch.device:
+                 ndim: int = 3, limit: str = "",
+                 max_nodes: Optional[int] = None) -> torch.device:
     """Validate a kernel's field operands before their pointers go to C:
     ``fields`` are ``(label, tensor)`` pairs that must all be contiguous
     fp32 CUDA tensors of one ``(B,) + grid`` shape with ``ndim`` grid axes
-    on one device, and ``smem_bytes(grid)``, the shared memory one block
-    needs, must fit (``limit`` says what does). Returns the device; raises
-    ValueError."""
+    on one device, ``smem_bytes(grid)``, the shared memory one block
+    needs, must fit, and a 3-D grid's largest plane must have at most
+    ``max_nodes`` nodes where that is given (``limit`` says what fits).
+    Returns the device; raises ValueError."""
     ref = fields[0][1]
     dev = ref.device
     if ref.ndim != ndim + 1:
@@ -89,6 +101,10 @@ def check_fields(name: str, fields, smem_bytes: Callable[[Tuple[int, ...]], int]
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"grid {grid}: {name} needs {need} bytes of shared "
                          f"memory per block, more than {MAX_SMEM_BYTES}"
+                         + (f": {limit}" if limit else ""))
+    if max_nodes is not None and max_plane_nodes(grid) > max_nodes:
+        raise ValueError(f"grid {grid}: {name} takes planes of at most "
+                         f"{max_nodes} nodes, not {max_plane_nodes(grid)}"
                          + (f": {limit}" if limit else ""))
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
@@ -111,11 +127,7 @@ def launch_threads(shape) -> int:
     one per node of the largest plane of a 3-D grid, one per node of the
     longest line of a 2-D grid, rounded up to whole warps."""
     grid = tuple(shape[1:])
-    if len(grid) == 3:
-        n0, n1, n2 = grid
-        nodes = max(n1 * n2, n0 * n2, n0 * n1)
-    else:
-        nodes = max(grid)
+    nodes = max_plane_nodes(grid) if len(grid) == 3 else max(grid)
     return min(MAX_THREADS, (nodes + 31) // 32 * 32)
 
 

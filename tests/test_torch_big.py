@@ -242,13 +242,14 @@ def test_blocked_route_counts_two_cycles_per_iteration(monkeypatch):
 @pytest.mark.parametrize("grid,kernel", [
     ((64, 64, 64), "TRANSPORT3D"),            # config 2
     ((48, 48, 32), "TRANSPORT3D"),            # config 3
-    ((107, 107, 8), "TRANSPORT3D"),           # K4's largest square plane
-    ((108, 108, 8), "TRANSPORT3D_LARGE"),
+    ((64, 64, 8), "TRANSPORT3D"),             # K4's largest square plane
+    ((65, 65, 8), "TRANSPORT3D_LARGE"),
     ((128, 128, 128), "TRANSPORT3D_LARGE"),   # config 5
-    ((8, 139, 139), "TRANSPORT3D_LARGE"),     # K5's largest square plane
+    ((8, 137, 137), "TRANSPORT3D_LARGE"),     # K5's largest square plane
 ])
 def test_transport_kernel_choice_by_shape(grid, kernel):
-    """K4 where its five shared-memory planes fit, else K5 with three; a
+    """K4 where its registers (4 nodes per thread, so 4096 per plane) and
+    four haloed shared-memory planes take the grid, else K5 with three; a
     pure function of the shape."""
     assert cuda_transport.transport_kernel_for(grid) is \
         getattr(cuda_transport, kernel)
@@ -256,17 +257,19 @@ def test_transport_kernel_choice_by_shape(grid, kernel):
 
 def test_plane_limits_and_128_cube_launch():
     """The limits the messages state (K1: two planes up to 4096 nodes, three
-    above, so 19,370 nodes, 139^2; K5's three planes: the same; K4's five:
-    11,622, 107^2), a grid no kernel takes, and config 5's launch: one CTA
-    of 1024 threads per 128^3 field, 192 KB of shared memory for K1 and K5
-    (K4 would need 320 KB); config 2's 64^3 takes K1 in 132 KB."""
-    assert plane_limit(3).startswith("3 fp32 planes fit cross-sections of "
-                                     "at most 19370 nodes (139^2 but not "
-                                     "140^2)")
+    above, so 19,370 nodes, 139^2; K5's three haloed planes: 137^2; K4's
+    eleven haloed planes and 4096 nodes: 64^2), a grid no kernel takes, and
+    config 5's launch: one CTA of 1024 threads per 128^3 field, 192 KB of
+    shared memory for K1 and 198 KB for K5 (K4 would need 726 KB and holds
+    4096 nodes); config 2's 64^3 takes K1 in 132 KB."""
+    assert plane_limit(3, 20480).startswith(
+        "3 fp32 planes with a one-node halo and at most 20480 nodes per "
+        "plane (20 per thread) take square cross-sections up to 137^2 but "
+        "not 138^2")
     assert cuda_sweep.sweep3d_limit().startswith(
         "K1 holds 2 fp32 planes up to 4096 nodes per plane and 3 above, so "
         "cross-sections of at most 19370 nodes (139^2 but not 140^2)")
-    assert "11622 nodes (107^2 but not 108^2)" in plane_limit(5)
+    assert "up to 64^2 but not 65^2" in plane_limit(11, 4096)
     c5 = (128, 128, 128)
     assert cuda_sweep.sweep3d_smem(c5) == 196608 <= MAX_SMEM_BYTES
     # Below 11,264 nodes per plane the 32 warps' transposition tiles
@@ -275,26 +278,68 @@ def test_plane_limits_and_128_cube_launch():
     assert cuda_sweep.sweep3d_smem((8, 8, 8)) == 2 * 32 * 33 * 4
     assert cuda_sweep.sweep3d_smem((8, 107, 107)) == 3 * 4 * 107 * 107
     assert cuda_sweep.sweep3d_smem((8, 139, 139)) <= MAX_SMEM_BYTES
-    assert plane_smem(3)(c5) == 196608 <= MAX_SMEM_BYTES
-    assert plane_smem(5)(c5) == 327680 > MAX_SMEM_BYTES
+    assert plane_smem(3)(c5) == 202800 <= MAX_SMEM_BYTES
+    assert plane_smem(11)(c5) == 743600 > MAX_SMEM_BYTES
     assert launch_threads((96,) + c5) == 1024
-    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
-        cuda_transport.transport_kernel_for((140, 140, 8))
-    # The wrappers check shared memory before the device, so the message
-    # shows on CPU tensors too.
+    with pytest.raises(ValueError, match="137\\^2 but not 138\\^2"):
+        cuda_transport.transport_kernel_for((138, 138, 8))
+    # The wrappers check shared memory and the plane's nodes before the
+    # device, so the message shows on CPU tensors too.
     big = torch.zeros((1, 8, 140, 140))
     with pytest.raises(ValueError, match="K1 holds .*139\\^2 but not 140\\^2"):
         cuda_sweep.SWEEP3D(big, big, torch.zeros((1, 4)), (1.0, 1.0, 1.0), 2,
                            seed_radius=3.0)
-    with pytest.raises(ValueError, match="139\\^2 but not 140\\^2"):
+    with pytest.raises(ValueError, match="137\\^2 but not 138\\^2"):
         cuda_transport.TRANSPORT3D_LARGE(big, big, (big, big, big), 2)
     mid = torch.zeros((1, 8, 120, 120))
-    with pytest.raises(ValueError, match="107\\^2 but not 108\\^2"):
+    with pytest.raises(ValueError, match="64\\^2 but not 65\\^2"):
         cuda_transport.TRANSPORT3D(mid, mid, (mid, mid, mid), 2)
     # CPU tensors take the plain cycle whatever the shape.
     g = torch.zeros((1, 8, 140, 140))
     out = cuda_transport.transport_cycle(g, g, (g, g, g), 2)
     assert torch.equal(out, g)
+
+
+@pytest.mark.parametrize("grid,kernel,match", [
+    # Shared memory fits K4 (11 x 72^2 floats), its registers do not.
+    ((4, 70, 70), "TRANSPORT3D",
+     "takes planes of at most 4096 nodes, not 4900"),
+    # A one-row plane of 4096 nodes: its halo is too long for K4's planes.
+    ((1, 4096, 1), "TRANSPORT3D", "shared"),
+    # 143^2 nodes are 20 per thread, but three haloed planes do not fit.
+    ((2, 143, 143), "TRANSPORT3D_LARGE", "shared"),
+])
+def test_transport_wrappers_refuse_before_device(grid, kernel, match):
+    """K4 and K5 refuse a plane they cannot hold (nodes per thread, then
+    shared memory) before they look at the device, so the message shows on
+    CPU tensors; the dispatch sends K4's refusals to K5."""
+    x = torch.zeros((1,) + grid)
+    k = getattr(cuda_transport, kernel)
+    assert not k.fits(grid)
+    with pytest.raises(ValueError, match=match):
+        k(x, x, (x, x, x), 2)
+    if kernel == "TRANSPORT3D":
+        assert cuda_transport.transport_kernel_for(grid) is \
+            cuda_transport.TRANSPORT3D_LARGE
+
+
+@pytest.mark.parametrize("grid", [(64, 64, 64), (48, 48, 32), (9, 7, 5),
+                                  (8, 128, 128), (7, 9)])
+def test_solve_cycle_on_cpu_is_the_plain_cycle(grid):
+    """``solve_cycle`` keeps K4's ring only on the card: for CPU tensors of
+    any shape (K4's, K5's, 2-D) it is ``transport_cycle``, the plain cycle,
+    so a solve through it is the plain solve bit for bit."""
+    gen = torch.Generator().manual_seed(21)
+    shape = (2,) + grid
+    ws = tuple(0.6 * (torch.rand(shape, generator=gen) - 0.5)
+               for _ in grid)
+    g = 0.1 * torch.randn(shape, generator=gen)
+    cycle = cuda_transport.solve_cycle(g, ws)
+    assert cycle is cuda_transport.transport_cycle
+    if np.prod(grid) <= 4096:
+        np.testing.assert_array_equal(
+            transport_solve(g, ws, 1e-6, 20, 2, cycle=cycle).numpy(),
+            transport_solve(g, ws, 1e-6, 20, 2).numpy())
 
 
 def test_backward_in_chunks_of_fields_equals_whole_batch(monkeypatch):

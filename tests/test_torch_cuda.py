@@ -125,6 +125,12 @@ def _transport_batch(dev, shape, spacing, srcs, seed=5):
     return ws, g
 
 
+def _bits(x):
+    """The fp32 batch as int32 words: equality then counts NaN payloads and
+    signed zeros."""
+    return x.contiguous().view(torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,spacing", [
     ((24, 20, 16), (1.0, 1.2, 0.9)),
@@ -132,7 +138,7 @@ def _transport_batch(dev, shape, spacing, srcs, seed=5):
 ])
 def test_transport_kernel_cycle_matches_plain(dev, shape, spacing):
     """One K4 launch equals one plain transport cycle bit for bit (the same
-    fp32 operations in the same order; bar 1e-5 * max|plain|), and a done
+    fp32 operations in the same order), for n_inner 2, 1 and 3, and a done
     field passes through untouched."""
     ws, g = _transport_batch(dev, shape, spacing,
                              [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
@@ -143,29 +149,72 @@ def test_transport_kernel_cycle_matches_plain(dev, shape, spacing):
     torch.cuda.synchronize()
     assert cuda_transport.TRANSPORT3D.launches == launches + 1
     ref = transport_cycle_plain(g, g, ws, 2, done)
-    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(_bits(out), _bits(ref))
     assert torch.equal(out[1], g[1])
     assert float((out[0] - g[0]).abs().max()) > 0.0
+    for n_inner in (1, 3):
+        assert torch.equal(
+            _bits(cuda_transport.transport_cycle(g, g, ws, n_inner)),
+            _bits(transport_cycle_plain(g, g, ws, n_inner)))
 
 
 @pytest.mark.cuda
 def test_transport_kernel_solve_matches_plain_solve(dev):
     """A whole transport solve at tol 1e-7 through K4 equals the plain
-    solve on the card within 1e-5 * max|plain|."""
+    solve on the card bit for bit (the same cycles, so the same count),
+    with a ring of each cycle's own and with the ring kept through the
+    solve (``solve_cycle``, the gradient's path)."""
     ws, g = _transport_batch(dev, (32, 24, 16), (1.0, 1.0, 1.0),
                              [[2.0, 3.0, 4.0], [30.0, 20.0, 2.0],
                               [15.0, 12.0, 8.0], [31.0, 23.0, 15.0]])
-    launches = cuda_transport.TRANSPORT3D.launches
-    out = transport_solve(g, ws, 1e-7, 100, 2,
-                          cycle=cuda_transport.transport_cycle)
-    assert cuda_transport.TRANSPORT3D.launches > launches
     ref = transport_solve(g, ws, 1e-7, 100, 2)
-    assert torch.isfinite(out).all()
-    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.isfinite(ref).all()
+    for cycle in (cuda_transport.transport_cycle,
+                  cuda_transport.solve_cycle(g, ws)):
+        launches = cuda_transport.TRANSPORT3D.launches
+        out = transport_solve(g, ws, 1e-7, 100, 2, cycle=cycle)
+        assert cuda_transport.TRANSPORT3D.launches > launches
+        assert torch.equal(_bits(out), _bits(ref))
+
+
+def _random_transport(dev, B, shape, seed=12):
+    """B fields of random signed weights (|w| < 0.3, a tenth exact zeros
+    and a tenth negative zeros, as frozen nodes and ties give) and random
+    g, made on the CPU from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    ws = []
+    for _ in range(3):
+        w = 0.6 * (torch.rand((B,) + shape, generator=gen) - 0.5)
+        u = torch.rand((B,) + shape, generator=gen)
+        w = torch.where(u < 0.1, 0.0, w)
+        w = torch.where(u > 0.9, -0.0, w)
+        ws.append(w.to(dev))
+    g = 0.1 * torch.randn((B,) + shape, generator=gen)
+    return tuple(ws), g.to(dev)
+
+
+# Shapes, each with the kernels that take it: the main paths' planes
+# (c2 64^3, c3 48x48x32, c5 128^3), odd sides (not multiples of 32, n2 not
+# a multiple of 4 or of the ring's 8-plane chunk), planes of one row and
+# one-plane axes, and the largest square plane of each entry.
+TRANSPORT_SHAPES = [
+    ((64, 64, 64), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),     # config 2
+    ((48, 48, 32), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),     # config 3
+    ((128, 128, 128), ("TRANSPORT3D_LARGE",)),                # config 5
+    ((33, 31, 17), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),
+    ((37, 23, 9), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),
+    ((7, 1, 45), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),       # n1 = 1
+    ((1, 30, 20), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),      # n0 = 1
+    ((64, 64, 9), ("TRANSPORT3D", "TRANSPORT3D_LARGE")),      # K4's largest
+    ((137, 137, 5), ("TRANSPORT3D_LARGE",)),                  # K5's largest
+]
 
 
 @pytest.mark.cuda
 def test_transport_kernel_wrapper_checks_inputs(dev):
+    """K4's wrapper refuses an fp64 operand, a non-contiguous weight, a
+    plane too large for its shared memory, one of more than 4096 nodes and
+    a ring not made for the batch."""
     k = cuda_transport.TRANSPORT3D
     x = torch.zeros((1, 8, 8, 8), device=dev)
     with pytest.raises(ValueError, match="float32"):
@@ -175,6 +224,88 @@ def test_transport_kernel_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="shared"):
         big = torch.zeros((1, 8, 120, 120), device=dev)
         k(big, big, (big, big, big), 2)
+    with pytest.raises(ValueError, match="at most 4096 nodes, not 4900"):
+        wide = torch.zeros((1, 4, 70, 70), device=dev)
+        k(wide, wide, (wide, wide, wide), 2)
+    with pytest.raises(ValueError, match="solve_ring"):
+        k(x, x, (x, x, x), 2, ring=k.solve_ring((2, 8, 8, 8), dev))
+    with pytest.raises(ValueError, match="made for"):
+        cuda_transport.solve_cycle(x, (x, x, x))(x, x.clone(), (x, x, x), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TRANSPORT3D", "TRANSPORT3D_LARGE"])
+def test_transport_size_rules_match_library(dev, name):
+    """The wrapper's copies of K4's and K5's size rules (nodes per thread,
+    haloed shared planes), which choose and refuse on the CPU too, agree
+    with the library's own on grids each side of every limit."""
+    from mceik_tpu_torch.eikonal.cuda_build import (MAX_SMEM_BYTES,
+                                                    MAX_THREADS,
+                                                    launch_threads,
+                                                    max_plane_nodes,
+                                                    plane_smem)
+    k = getattr(cuda_transport, name)
+    npt = k.nodes_per_thread.build()()
+    assert k.max_nodes == npt * MAX_THREADS
+    for grid in [(64, 64, 64), (48, 48, 32), (128, 128, 128), (33, 31, 17),
+                 (64, 64, 9), (65, 65, 8), (4, 70, 70), (137, 137, 5),
+                 (138, 138, 5), (143, 143, 2), (1, 4096, 1), (8, 8, 8)]:
+        smem = k.smem_bytes.build()(*grid, launch_threads((1,) + grid))
+        assert plane_smem(k.n_planes)(grid) <= smem
+        assert k.fits(grid) == (smem <= MAX_SMEM_BYTES and
+                                max_plane_nodes(grid) <= npt * MAX_THREADS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 64), (48, 48, 32), (33, 31, 17),
+                                   (7, 1, 45)])
+def test_transport_kept_ring_matches_plain(dev, shape):
+    """K4 on a ring kept from cycle to cycle (g and the weights copied into
+    a field's ring by its first cycle only) equals the plain cycles bit for
+    bit: a first cycle with one field done, whose ring stays unfilled, then
+    two with none done."""
+    ws, g = _random_transport(dev, 3, shape, seed=13)
+    k = cuda_transport.TRANSPORT3D
+    ring = k.solve_ring(g.shape, dev)
+    done = torch.tensor([False, True, False], device=dev)
+    lam_k = k(g, g, ws, 2, done, ring=ring)
+    lam_p = transport_cycle_plain(g, g, ws, 2, done)
+    assert torch.equal(_bits(lam_k), _bits(lam_p))
+    assert ring[1].tolist() == [1, 0, 1]
+    for _ in range(2):
+        lam_k = k(lam_k, g, ws, 2, ring=ring)
+        lam_p = transport_cycle_plain(lam_p, g, ws, 2)
+        assert torch.equal(_bits(lam_k), _bits(lam_p))
+    assert ring[1].tolist() == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernels", TRANSPORT_SHAPES)
+def test_transport_kernels_bit_for_bit(dev, shape, kernels):
+    """K4 and K5 (each where it takes the shape) equal the plain cycle bit
+    for bit on random signed weights with exact and negative zeros: three
+    fields, one of them done (untouched), for n_inner 2; and a field whose
+    g holds a NaN and an inf comes back poisoned exactly as the plain
+    cycle's, the others finite."""
+    ws, g = _random_transport(dev, 3, shape)
+    done = torch.tensor([False, True, False], device=dev)
+    ref = transport_cycle_plain(g, g, ws, 2, done)
+    bad = g.clone()
+    bad[2, 0, 0, 0] = float("nan")
+    bad[2, -1, -1, -1] = float("inf")
+    ref_bad = transport_cycle_plain(bad, bad, ws, 2)
+    assert torch.isnan(ref_bad[2]).any()
+    assert torch.isfinite(ref_bad[:2]).all()
+    for name in kernels:
+        k = getattr(cuda_transport, name)
+        launches = k.launches
+        out = cuda_transport.transport_cycle(g, g, ws, 2, done, kernel=k)
+        torch.cuda.synchronize()
+        assert k.launches == launches + 1
+        assert torch.equal(_bits(out), _bits(ref)), name
+        assert torch.equal(_bits(out[1]), _bits(g[1])), name
+        assert torch.equal(_bits(cuda_transport.transport_cycle(
+            bad, bad, ws, 2, kernel=k)), _bits(ref_bad)), name
 
 
 def _batch2d(dev, B, shape, spacing, seed=6, amp=0.3):
@@ -271,13 +402,13 @@ def _c3_batch(dev, B=128, seed=8):
 @pytest.mark.cuda
 def test_kernels_at_config3_batch(dev):
     """K1 and K4 on config 3's 128 x 48x48x32 batch: the wrapper's checks
-    pass (132 KB and 46 KB of shared memory, 1024 threads for the 2304-node
+    pass (132 KB and 108 KB of shared memory, 1024 threads for the 2304-node
     planes); one K1 cycle equals the plain one bit for bit and a solve at
     tol 1e-3 the plain solve (bar 1e-4), one K4 cycle equals the plain one
-    (bar 1e-5 of max|plain|)."""
+    bit for bit."""
     from mceik_tpu_torch.eikonal.cuda_build import launch_threads, plane_smem
     assert cuda_sweep.sweep3d_smem(C3_SHAPE) == 135168
-    assert plane_smem(5)(C3_SHAPE) == 46080
+    assert plane_smem(11)(C3_SHAPE) == 110000
     assert launch_threads((128,) + C3_SHAPE) == 1024
     g, s, srcs, T0, frozen = _c3_batch(dev)
     scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
@@ -298,7 +429,7 @@ def test_kernels_at_config3_batch(dev):
     torch.cuda.synchronize()
     assert cuda_transport.TRANSPORT3D.launches == launches + 1
     lam_p = transport_cycle_plain(gg, gg, ws, 2)
-    assert float((lam - lam_p).abs().max()) <= 1e-5 * float(lam_p.abs().max())
+    assert torch.equal(_bits(lam), _bits(lam_p))
 
 
 @pytest.mark.cuda
@@ -319,15 +450,18 @@ def test_large_transport_kernel_equals_plain_and_k4(dev, shape, spacing):
     out = cuda_transport.transport_cycle(g, g, ws, 2, done, kernel=k5)
     torch.cuda.synchronize()
     assert k5.launches == launches + 1
-    assert torch.equal(out, transport_cycle_plain(g, g, ws, 2, done))
-    assert torch.equal(out, cuda_transport.TRANSPORT3D(g, g, ws, 2, done))
+    assert torch.equal(_bits(out), _bits(transport_cycle_plain(g, g, ws, 2,
+                                                               done)))
+    assert torch.equal(_bits(out), _bits(cuda_transport.TRANSPORT3D(
+        g, g, ws, 2, done)))
     assert torch.equal(out[1], g[1])
 
 
 @pytest.mark.cuda
 def test_kernels_at_128_cube(dev):
-    """Config 5's 128^3 fields: the transport dispatch picks K5 (K4's five
-    planes need 320 KB), K1 takes them in 192 KB (16 nodes per thread, s
+    """Config 5's 128^3 fields: the transport dispatch picks K5 (K4 takes
+    planes of at most 4096 nodes), K1 takes them in 192 KB (16 nodes per
+    thread, s
     staged); one K1 cycle and one K5 cycle on two fields equal the plain
     cycles bit for bit."""
     shape = (128, 128, 128)
@@ -349,7 +483,8 @@ def test_kernels_at_128_cube(dev):
     lam = cuda_transport.transport_cycle(gg, gg, ws, 2)
     torch.cuda.synchronize()
     assert cuda_transport.TRANSPORT3D_LARGE.launches == launches + 1
-    assert torch.equal(lam, transport_cycle_plain(gg, gg, ws, 2))
+    assert torch.equal(_bits(lam), _bits(transport_cycle_plain(gg, gg, ws,
+                                                               2)))
 
 
 def _transport_batch2d(dev, B, shape, spacing, seed=7):
