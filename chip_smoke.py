@@ -17,7 +17,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (``csrc/sweep2d.cu``), K5, the adjoint transport cycle of fields
    whose planes K4 cannot hold (the second entry point of
    ``csrc/transport3d.cu``, built with K4), K6, the 2-D adjoint transport
-   cycle (``csrc/transport2d.cu``);
+   (``csrc/transport2d.cu``); K3 and K6 run a cycle, or each field's whole
+   solve, per launch, and include ``csrc/line2d.cuh``; K3 has two routes
+   (kernels) in its source, a warp per field and a CTA per field;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes and on edge cases (bar: bit for bit, ``torch.equal``, one cycle
    against ``sweep_seeded_cycle_plain`` and whole solves against the plain
@@ -42,19 +44,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 7. the AM path of slice 1, ``configs/c2_checkerboard3d.json`` at 16
    chains, depth cut, counts reset and read the same way: K1 launched,
    logposts finite and rising;
-8. K3 against its plain version on the card (bar: max abs traveltime
-   difference <= 1e-4), one cycle and a full solve each, on (a) config 4's
-   batch, 10,000 prior-drawn particles x 8 crosswell sources = 80,000
+8. K3 against its plain versions on the card (bar: bit for bit, NaN at
+   the same places, and the same per-field cycle counts), on each of its
+   routes (warp and block) forced, where the grid fits it: its cycle entry
+   against ``sweep_seeded_cycle_plain`` and its solve entry (each field's
+   whole solve in one launch) against the host loop ``sweep_solve`` around
+   it, and ``seeded_cycle`` and ``solve_eikonal_batched`` one K3 launch
+   each on the route the wrapper picks, on (a) config
+   4's batch, 10,000 prior-drawn particles x 8 crosswell sources = 80,000
    fields of 48^2 at tol 1e-3, (b) config 1's batch, 4 chains x 8 sources =
    32 fields of 65^2 at tol 1e-4, and (c) an odd anisotropic non-square
-   batch with done flags set, whose fields must come back untouched; then
-   config 4's log-likelihood of the 10,000 particles through K3 and
-   through the plain solve (bar: rtol 1e-6);
+   batch with done flags set, whose fields must come back untouched, and a
+   field with a NaN in its slowness, NaN after its one cycle; then config
+   4's log-likelihood of the 10,000 particles through K3 and through the
+   plain solve (bar: rtol 1e-6);
 9. config 4's tempered SMC at full width (10,000 particles, 48^2 grid)
    through ``mceik_tpu_torch.samplers.smc.run_smc_config``, the function
    the CLI calls, with the ladder capped at 3 stages, counts reset and
-   read: K3 launched, beta strictly rising, each stage's ESS at its target
-   0.5 N (or beta = 1), log Z and acceptance finite;
+   read: K3's warp route launched (one launch per solve; the cycles it
+   counted printed),
+   beta strictly rising, each stage's ESS at its target 0.5 N (or beta =
+   1), log Z and acceptance finite;
 10. config 1's RWM at full width (4 chains, 65^2 grid) through
    ``mceik_tpu_torch.cli.main(["run", "configs/c1_crosswell.json", ...])``
    with the depth cut, counts reset and read: K3 launched, logposts finite
@@ -95,12 +105,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    chains and the depth cut (max tree depth 1, 4 warmup and 2 sampling
    steps), counts reset and read: K1 and K5 launched, logposts finite and
    rising, every indicator in {0, 1};
-17. K6 against its plain version (bar 0.0) on three batches: config 1's
-   32 fields of 65^2 with weights from K3's solves and cotangents of the
-   config-1 log-likelihood (one cycle and a solve), 80,000 prior-drawn
-   config-4 fields of 48^2 with weights from K3's solves (one cycle), and an
-   odd anisotropic batch with done flags and a divergent field (one cycle;
-   a solve, in which the divergent field must come back all NaN);
+17. K6 against its plain versions (bar: bit for bit as int32 words, and
+   the same per-field cycle counts), its cycle entry against
+   ``transport_cycle_plain`` and its solve entry against the host loop
+   ``transport_solve``, ``cuda_transport.solve`` one launch, on three
+   batches: config 1's 32 fields of 65^2 with weights from K3's solves and
+   cotangents of the config-1 log-likelihood, 80,000 prior-drawn config-4
+   fields of 48^2 with weights from K3's solves, and an odd anisotropic
+   batch with done flags and a divergent field, which must come back all
+   NaN from both solves;
 18. config 1's logpost gradient of 4 chains through K3 + K6 against the
    plain solves on the card (bar 1e-5 of its max abs) and against a central
    finite difference (bar: relative error < 0.1);
@@ -108,23 +121,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    grid, 16^2 basis, 8 sources, 12 receivers, 4 chains) with
    ``sampler.algorithm=nuts`` (depth cut: max tree depth 5, 30 + 30 steps)
    and with ``sampler.algorithm=mala`` (Laplace setup on 256 dims cut to 40
-   MAP steps, 30 + 60 steps), counts reset and read for each: K3 and K6
-   launched, logposts finite and rising;
+   MAP steps, 30 + 60 steps), counts reset and read for each: K3 (its
+   block route) and K6 launched (launches and kernel-counted cycles
+   printed), logposts finite
+   and rising;
 20. the gridbatch route on config 2's 128 fields of 64^3: the whole
    ``solve_eikonal_batched(..., impl="gridbatch")`` against
    ``impl="field"`` (bar: bit for bit; it is the same route), its K1
    launches counted from 0 over that solve.
 
-The line before the last is a JSON object listing the kernels with their
-launch counts (K1 and K4 on the MALA path, K3 on the SMC path, K5 on the
-config-5 path, K6 on config 1's NUTS path, K1 again on the gridbatch solve
-for the TPU's gridbatch kernel; K1's
-and K4's config-3 NUTS counts and times, K1's config-5 counts and times,
-K5's time forced on config 2's batch, K3's config-1 times, K6's config-1
-MALA count and config-4 times),
-errors, times and bounds (the larger of
-bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32, counted from
-each kernel's source at the shapes timed); the last line is
+The line before the last is a JSON object listing the kernels' entries
+with their launch counts (K1 and K4 on the MALA path, K3 on the SMC path,
+K5 on the config-5 path, K6 on config 1's NUTS path, K1 again on the
+gridbatch solve for the TPU's gridbatch kernel; K3's and K6's cycle and
+solve entries share their kernel's count and list the cycles it counted;
+K1's and K4's config-3 NUTS counts and times, K1's config-5 counts and
+times, K5's time forced on config 2's batch, K3's config-1 times, K6's
+config-1 MALA count and config-4 times), errors, times and bounds (the
+larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
+counted from each kernel's source at the shapes timed; a solve's bound
+moves its bytes once and does the operations of every cycle its fields
+ran); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository
 around this file; without either it fails before printing any result.
 """
@@ -132,6 +149,7 @@ around this file; without either it fails before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -148,7 +166,6 @@ C1_CONFIG = os.path.join(REPO, "configs", "c1_crosswell.json")
 C4_CONFIG = os.path.join(REPO, "configs", "c4_smc.json")
 C3_CONFIG = os.path.join(REPO, "configs", "c3_joint_events.json")
 C5_CONFIG = os.path.join(REPO, "configs", "c5_pod_nuts.json")
-K3_BAR = 1e-4       # K3 vs plain, max abs traveltime difference
 LL_RTOL = 1e-6      # c4 log-likelihood through K3 vs through the plain solve
 SMC_STAGES = 3      # c4 ladder cap (depth cut)
 GRAD_REL_BAR = 1e-5  # kernel vs plain gradient, max abs diff / max abs
@@ -237,6 +254,54 @@ def _k3_ops(n_inner):
     return 4 * (22 * n_inner + 1)
 
 
+def _k3_bound(nodes, fields, n_inner, field_cycles=None):
+    """K3's bound for one cycle of every field (``field_cycles`` None) or
+    for whole solves whose cycles, summed over the fields, are
+    ``field_cycles``: T and s read and T written once (12 B per node),
+    three source scalars per field (12 B), the operations of every cycle
+    run, and the floor's 15 per node once (it is constant through a
+    solve). A cycle moves the bytes once per launch as well."""
+    cycles = fields if field_cycles is None else field_cycles
+    return _bound(nodes, 12 + 12 * fields / nodes,
+                  _k3_ops(n_inner) * cycles / fields + 15)
+
+
+def _k6_bound(nodes, n_inner, field_cycles=None, fields=None):
+    """K6's bound, as K3's: lam (or g), g, w0 and w1 read and lam written
+    (20 B per node per cycle; a solve reads g, w0 and w1 and writes lam
+    once, 16 B per node)."""
+    if field_cycles is None:
+        return _bound(nodes, 20, _k6_ops(n_inner))
+    return _bound(nodes, 16, _k6_ops(n_inner) * field_cycles / fields)
+
+
+def _bits(x):
+    """The fp32 tensor as int32 words (NaN payloads and signed zeros
+    count)."""
+    import torch
+
+    return x.contiguous().view(torch.int32)
+
+
+def _same_bits(a, b):
+    """Bit for bit on every non-NaN value, NaN at the same places (the
+    card's arithmetic writes its own NaN payload where torch may pass an
+    operand's on)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        _bits(torch.where(na, 0.0, a)), _bits(torch.where(nb, 0.0, b)))
+
+
+def _abs_err(a, b):
+    """max |a - b| where both are finite (0.0 for empty)."""
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
+
+
 def _k4_ops(n_inner):
     return 6 * (6 + 12 * n_inner)
 
@@ -266,13 +331,20 @@ def _card_line() -> str:
 
 
 def _timed(fn, reps=1):
-    """(result, ms per call) with CUDA events around ``reps`` calls."""
+    """(result, ms per call) with CUDA events around ``reps`` calls after a
+    warm-up call; with ``reps`` 0, the first call itself (the plain host
+    loops, seconds long, need no warm-up)."""
     import torch
 
-    out = fn()  # warm-up (and the result)
-    torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()  # warm-up (and the result)
+    e1.record()
+    torch.cuda.synchronize()
+    if reps == 0:
+        return out, e0.elapsed_time(e1)
     e0.record()
     for _ in range(reps):
         fn()
@@ -374,7 +446,6 @@ def main() -> int:
     from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
                                                seed_floor, seed_source,
                                                solve_route, source_scalars,
-                                               sweep_cycle_plain,
                                                sweep_seeded_cycle_plain,
                                                sweep_solve)
     from mceik_tpu_torch.forward.predict import interp_tables, predict_events
@@ -414,8 +485,8 @@ def main() -> int:
     on = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="on")
     off = EikonalConfig(tol=SOLVE_TOL, max_iters=200, use_pallas="off")
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d_cycle": [],
-            "transport3d_large_cycle": [], "transport2d_cycle": [],
+    errs = {"sweep3d_cycle": [], "transport3d_cycle": [], "sweep2d": [],
+            "transport3d_large_cycle": [], "transport2d": [],
             "gridbatch": []}
 
     def compare(label, s, srcs, g):
@@ -741,41 +812,97 @@ def main() -> int:
           f"chains after init, {rate_last:.2f} in the last segment (cli wall "
           f"{wall:.1f} s)")
 
-    # 8. K3 vs plain, on the card.
-    def k3_pair(label, s, srcs, g, ecfg, done=None):
-        """One cycle and a full solve through K3 and the plain version;
-        returns the K3 cycle's and the plain cycle's ms per launch."""
-        T0, frozen = seed_source(s, srcs, g, ecfg.seed_radius)
-        fl = seed_floor(T0, frozen)
+    # 8. K3 vs plain, on the card: its cycle entry and its solve entry, on
+    # each of its two routes.
+    def k3_pair(label, s, srcs, g, ecfg, done=None, nan_field=False):
+        """One cycle and a whole solve through K3, on each route the grid
+        fits, and the plain versions (bar: bit for bit, NaN included, and
+        the same per-field cycle counts); the solve route of
+        ``solve_eikonal_batched`` is one K3 launch, on the route
+        ``route_for`` picks. Returns {route: (cycle ms, solve ms)}, the
+        plain cycle ms and plain solve ms, the cycles summed over fields
+        and the route picked. ``nan_field`` appends a field with a NaN in
+        its slowness, which must stop after one cycle."""
+        if nan_field:
+            s = torch.cat([s, s[:1]]).contiguous()
+            s[-1, g.shape[0] // 2, g.shape[1] // 2] = float("nan")
+            srcs = torch.cat([srcs, srcs[:1]])
+            if done is not None:
+                done = torch.cat([done, done[:1]])
+        T0, _ = seed_source(s, srcs, g, ecfg.seed_radius)
+        scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
         if done is None:
             done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
+        rad = ecfg.seed_radius
+        picked = cuda_sweep2d.route_for(T0.shape[0], g.shape, dev)
+        T1_p, ms_p = _timed(lambda: sweep_seeded_cycle_plain(
+            T0, s, scal, g.spacing, ecfg.n_inner, done, seed_radius=rad),
+            reps=0)
+        (T_p, cyc_p), ms_sp = _timed(lambda: sweep_solve(
+            T0, scal, s, g.spacing, ecfg.tol, ecfg.max_iters, ecfg.n_inner,
+            cycle=functools.partial(sweep_seeded_cycle_plain,
+                                    seed_radius=rad), return_cycles=True),
+            reps=0)
         launches0 = k3.launches
-        T1_k, ms_k = _timed(lambda: cuda_sweep.sweep_cycle(
-            T0, s, fl, g.spacing, ecfg.n_inner, done), reps=10)
-        if k3.launches == launches0:
+        T1_auto = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing,
+                                          ecfg.n_inner, done, seed_radius=rad)
+        if k3.launches != launches0 + 1:
             raise RuntimeError(f"K3 {label}: the kernel was not launched")
-        T1_p, ms_p = _timed(lambda: sweep_cycle_plain(
-            T0, s, fl, g.spacing, ecfg.n_inner, done), reps=1)
-        err = float((T1_k - T1_p).abs().max())
-        kept = bool(torch.equal(T1_k[done], T0[done]))
-        on_ = dataclasses.replace(ecfg, use_pallas="on")
-        off_ = dataclasses.replace(ecfg, use_pallas="off")
-        T_k, ms_sk = _timed(lambda: solve_eikonal_batched(s, srcs, g, on_))
-        T_p, ms_sp = _timed(lambda: solve_eikonal_batched(s, srcs, g, off_))
-        err_s = float((T_k - T_p).abs().max())
-        finite = bool(torch.isfinite(T_k).all())
-        print(f"K3 compare {label}: B={T0.shape[0]} grid={g.shape} "
-              f"spacing={g.spacing}: one cycle max|kernel-plain| = "
-              f"{err:.3e}, ms per launch kernel {ms_k:.3f}, plain {ms_p:.3f}; "
-              f"solve at tol {ecfg.tol} max|kernel-plain| = {err_s:.3e}, ms "
-              f"per solve kernel {ms_sk:.3f}, plain {ms_sp:.3f}; done fields "
-              f"{int(done.sum())} untouched {kept}")
-        if not (finite and kept and err <= K3_BAR and err_s <= K3_BAR):
-            raise RuntimeError(f"K3 {label}: kernel disagrees with plain "
-                               f"(cycle {err}, solve {err_s}, finite "
-                               f"{finite}, done fields kept {kept})")
-        errs["sweep2d_cycle"].extend([err, err_s])
-        return ms_k, ms_p
+        launches0 = k3.launches
+        T_r = solve_eikonal_batched(s, srcs, g,
+                                    dataclasses.replace(ecfg, use_pallas="on"))
+        one_launch = (k3.launches == launches0 + 1
+                      and _same_bits(T1_auto, T1_p))
+        times = {}
+        for route in cuda_sweep2d.ROUTES:
+            if (route == "block" and cuda_sweep2d.block_smem_bytes(g.shape)
+                    > cuda_sweep2d.MAX_SMEM_BYTES):
+                continue
+            T1_k, ms_k = _timed(lambda: k3.cycle(
+                T0, s, scal, g.spacing, ecfg.n_inner, done, seed_radius=rad,
+                route=route), reps=10)
+            same_cycle = _same_bits(T1_k, T1_p)
+            kept = _same_bits(T1_k[done], T0[done])
+            (T_k, cyc_k), ms_sk = _timed(lambda: k3.solve(
+                T0, s, scal, g.spacing, ecfg.n_inner, ecfg.tol,
+                ecfg.max_iters, seed_radius=rad, route=route), reps=3)
+            same_solve = _same_bits(T_k, T_p) and torch.equal(cyc_k, cyc_p)
+            one_launch = one_launch and _same_bits(T_r, T_k)
+            err = _abs_err(T1_k, T1_p)
+            err_s = _abs_err(T_k, T_p)
+            nan_ok = True
+            if nan_field:
+                nan_ok = (bool(torch.isnan(T_k[-1]).any())
+                          and int(cyc_k[-1]) == 1
+                          and bool(torch.isfinite(T_k[:-1]).all()))
+            print(f"K3 compare {label}, {route} route"
+                  f"{' (picked)' if route == picked else ''}: "
+                  f"B={T0.shape[0]} grid={g.shape} spacing={g.spacing}: one "
+                  f"cycle bit for bit {same_cycle} (max|kernel-plain| "
+                  f"{err:.3e}), ms per launch kernel {ms_k:.3f}, plain "
+                  f"{ms_p:.3f}; solve at tol {ecfg.tol} bit for bit with "
+                  f"equal per-field cycles {same_solve} (max|kernel-plain| "
+                  f"{err_s:.3e}; cycles per field mean "
+                  f"{float(cyc_k.float().mean()):.3f}, max "
+                  f"{int(cyc_k.max())}, sum {int(cyc_k.sum())}), ms per "
+                  f"solve kernel {ms_sk:.3f} (one launch), plain host loop "
+                  f"{ms_sp:.3f}; done fields {int(done.sum())} untouched "
+                  f"{kept}" + (f"; the NaN field NaN after 1 cycle {nan_ok}"
+                               if nan_field else ""))
+            if not (same_cycle and kept and same_solve and nan_ok):
+                raise RuntimeError(
+                    f"K3 {label}, {route} route: kernel disagrees with plain "
+                    f"(cycle {err}, solve {err_s}, done fields kept {kept}, "
+                    f"NaN field {nan_ok})")
+            errs["sweep2d"].extend([err, err_s])
+            times[route] = (ms_k, ms_sk)
+        print(f"K3 {label}: the wrapper's route {picked}; seeded_cycle and "
+              f"solve_eikonal_batched one launch each, same bits "
+              f"{one_launch}")
+        if not one_launch or picked not in times:
+            raise RuntimeError(f"K3 {label}: the wrapper's route {picked} "
+                               f"disagrees (one launch {one_launch})")
+        return times, ms_p, ms_sp, int(cyc_p.sum()), picked
 
     # (a) config 4's batch: prior-drawn particles x its crosswell sources.
     c4 = load_config(C4_CONFIG)
@@ -790,8 +917,8 @@ def main() -> int:
     n_src4 = data4.src_xyz.shape[0]
     s4 = post4.slowness_of(parts).unsqueeze(1).expand(
         (n_part, n_src4) + g4.shape).reshape((-1,) + g4.shape).contiguous()
-    ms_k3, ms_k3_plain = k3_pair("a (c4 batch)", s4,
-                                 data4.src_xyz.repeat(n_part, 1), g4, ecfg4)
+    k3_c4, ms_k3_plain, ms_k3s_plain, k3_cycles, _ = k3_pair(
+        "a (c4 batch)", s4, data4.src_xyz.repeat(n_part, 1), g4, ecfg4)
     del s4
     # (b) config 1's batch: 4 chains (an RWM start) x its sources.
     c1 = load_config(C1_CONFIG)
@@ -805,9 +932,9 @@ def main() -> int:
     ecfg1 = EikonalConfig(tol=c1.eikonal.tol, max_iters=c1.eikonal.max_iters,
                           n_inner=c1.eikonal.n_inner,
                           seed_radius=c1.eikonal.seed_radius)
-    ms_k3_c1, ms_k3_c1_plain = k3_pair(
-        "b (c1 batch)", s1.contiguous(),
-        data1.src_xyz.repeat(c1.sampler.n_chains, 1), g1, ecfg1)
+    k3_c1, ms_k3_c1_plain, ms_k3s_c1_plain, k3_cycles_c1, route_c1 = \
+        k3_pair("b (c1 batch)", s1.contiguous(),
+                data1.src_xyz.repeat(c1.sampler.n_chains, 1), g1, ecfg1)
     # (c) odd, anisotropic, non-square, with done flags.
     g_o = Grid((37, 23), (1.0, 1.25))
     u_o = 0.5 * torch.randn((7, 6, 6), generator=gen, device=dev)
@@ -816,8 +943,9 @@ def main() -> int:
         * torch.tensor(g_o.extent, device=dev)
     done_o = torch.tensor([False, True, False, False, True, False, True],
                           device=dev)
-    k3_pair("c (odd anisotropic non-square, done flags)", s_o, srcs_o, g_o,
-            EikonalConfig(tol=1e-5, max_iters=100), done=done_o)
+    k3_pair("c (odd anisotropic non-square, done flags, a NaN field)", s_o,
+            srcs_o, g_o, EikonalConfig(tol=1e-5, max_iters=100), done=done_o,
+            nan_field=True)
 
     # Config 4's log-likelihood of the 10,000 particles, K3 vs plain.
     post4_off = build_posterior(
@@ -838,15 +966,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. Config 4's SMC at full width through the CLI's SMC entry point.
-    k1.launches = k4.launches = k3.launches = 0
+    k1.launches = k4.launches = k3.launches = k3.block_launches = 0
+    k3_cycles0 = k3.field_cycles()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = run_smc_config(c4, device="cuda", verbose=True,
                          max_stages=SMC_STAGES)
     smc_wall = time.perf_counter() - t0
-    smc_launches = k3.launches
-    if smc_launches <= 0:
-        raise RuntimeError("SMC path: K3 was never launched")
+    smc_launches, smc_block = k3.launches, k3.block_launches
+    smc_cycles = k3.field_cycles() - k3_cycles0
+    if smc_launches - smc_block <= 0:
+        raise RuntimeError("SMC path: K3's warp route was never launched")
     betas = res.betas
     target = c4.sampler.ess_threshold * n_part
     if not all(b1 > b0 for b0, b1 in zip(betas, betas[1:])):
@@ -864,7 +994,10 @@ def main() -> int:
     per_stage = sum(res.stage_seconds) / res.n_stages
     pms = (n_part * c4.sampler.n_mutation_steps * res.n_stages
            / sum(res.stage_seconds))
-    print(f"SMC path: {smc_launches} K3 launches; {res.n_stages} stages, "
+    print(f"SMC path: {smc_launches} K3 launches (one per solve; "
+          f"{smc_block} of them on the block route), "
+          f"{smc_cycles} cycles counted by the kernel, summed over fields; "
+          f"{res.n_stages} stages, "
           f"betas {betas}, ESS {res.ess_history}, acceptance "
           f"{res.accept_history}, log Z {res.log_evidence:.3f}; "
           f"{per_stage:.3f} s per stage (stages {res.stage_seconds}), "
@@ -873,7 +1006,7 @@ def main() -> int:
           f"{smc_wall:.1f} s including data and the initial particles")
 
     # 10. Config 1's RWM at full width through the CLI.
-    k1.launches = k4.launches = k3.launches = 0
+    k1.launches = k4.launches = k3.launches = k3.block_launches = 0
     recs, _, wall = _run_cli(cli, ["run", C1_CONFIG, *C1_ARGS])
     rwm_launches = k3.launches
     if rwm_launches <= 0:
@@ -890,12 +1023,14 @@ def main() -> int:
     if not 0.05 < accept < 0.99:
         raise RuntimeError(f"RWM path: acceptance {accept} outside "
                            "(0.05, 0.99)")
-    print(f"RWM path: {rwm_launches} K3 launches; logpost_mean "
+    print(f"RWM path: {rwm_launches} K3 launches ({k3.block_launches} on "
+          f"the block route); logpost_mean "
           f"{init['logpost_mean']} -> {samp[-1]['logpost_mean']}; acceptance "
           f"{accept:.4f}; {rate_all:.2f} chain-steps/s over {steps} steps x "
           f"{n1} chains after init, {rate_last:.2f} in the last segment "
           f"(cli wall {wall:.1f} s); K3 ms per launch at c1's batch "
-          f"{ms_k3_c1:.3f}, plain {ms_k3_c1_plain:.3f}")
+          f"{k3_c1[route_c1][0]:.3f} ({route_c1} route), plain "
+          f"{ms_k3_c1_plain:.3f}")
     print(f"phases 1-10 wall {time.perf_counter() - t_start:.1f} s")
 
     # 11. K1 and K4 at config 3's batch: prior-drawn chains x stations.
@@ -1202,17 +1337,66 @@ def main() -> int:
           f"{wall:.1f} s)")
     print(f"phases 1-16 wall {time.perf_counter() - t_start:.1f} s")
 
-    # 17. K6 against its plain version on three batches (bar 0.0: the same
-    # fp32 operations in the same order).
-    def k6_check(label, out_k, out_p, sel=slice(None)):
-        err = float((out_k[sel] - out_p[sel]).abs().max())
-        finite = bool(torch.isfinite(out_k[sel]).all())
-        print(f"K6 compare {label}: max|kernel-plain| = {err:.3e} "
-              f"(max|plain| {float(out_p[sel].abs().max()):.3e})")
-        if not (finite and err == 0.0):
+    # 17. K6 against its plain version on three batches, its cycle entry
+    # and its solve entry (bar: bit for bit as int32, NaN included, and the
+    # same per-field cycle counts).
+    def k6_pair(label, g_, ws_, tol, max_cycles, n_inner, done=None,
+                diverged=None):
+        """One cycle (with ``done`` flags) and a whole solve through K6 and
+        the plain versions; ``diverged`` indexes a field that must come back
+        all NaN from both solves. Returns (cycle ms, plain cycle ms, solve
+        ms, plain solve ms, cycles summed over fields)."""
+        if done is None:
+            done = torch.zeros(g_.shape[0], dtype=torch.bool, device=dev)
+        l6 = k6.launches
+        out_k, ms_c = _timed(lambda: cuda_transport.transport_cycle(
+            g_, g_, ws_, n_inner, done), reps=10)
+        if k6.launches == l6:
+            raise RuntimeError(f"K6 {label}: the kernel was not launched")
+        out_p, ms_cp = _timed(lambda: transport_cycle_plain(
+            g_, g_, ws_, n_inner, done), reps=0)
+        same_cycle = torch.equal(_bits(out_k), _bits(out_p))
+        kept = torch.equal(_bits(out_k[done]), _bits(g_[done]))
+        (lam_k, cyc_k), ms_s = _timed(lambda: k6.solve(
+            g_, ws_, tol, max_cycles, n_inner), reps=3)
+        (lam_p, cyc_p), ms_sp = _timed(lambda: transport_solve(
+            g_, ws_, tol, max_cycles, n_inner, return_cycles=True), reps=0)
+        same_solve = (torch.equal(_bits(lam_k), _bits(lam_p))
+                      and torch.equal(cyc_k, cyc_p))
+        l6 = k6.launches
+        lam_r = cuda_transport.solve(g_, ws_, tol, max_cycles, n_inner)
+        one_launch = (k6.launches == l6 + 1
+                      and torch.equal(_bits(lam_r), _bits(lam_k)))
+        div_ok = True
+        finite = lam_k
+        if diverged is not None:
+            div_ok = bool(torch.isnan(lam_k[diverged]).all())
+            finite = torch.cat([lam_k[:diverged], lam_k[diverged + 1:]])
+        finite = bool(torch.isfinite(finite).all()) and bool(
+            torch.isfinite(out_k).all())
+        err = _abs_err(out_k, out_p)
+        err_s = _abs_err(lam_k, lam_p)
+        print(f"K6 compare {label}: B={g_.shape[0]} grid="
+              f"{tuple(g_.shape[1:])}: one cycle bit for bit {same_cycle} "
+              f"(max|kernel-plain| {err:.3e}, max|plain| "
+              f"{float(out_p.abs().max()):.3e}), ms per launch kernel "
+              f"{ms_c:.3f}, plain {ms_cp:.3f}; done fields {int(done.sum())} "
+              f"untouched {kept}; solve at tol {tol} bit for bit with equal "
+              f"per-field cycles {same_solve} (cycles per field mean "
+              f"{float(cyc_k.float().mean()):.3f}, max {int(cyc_k.max())}, "
+              f"sum {int(cyc_k.sum())}), ms per solve kernel {ms_s:.3f} "
+              f"(one launch), plain host loop {ms_sp:.3f}; "
+              f"cuda_transport.solve one launch {one_launch}"
+              + (f"; the divergent field all NaN {div_ok}"
+                 if diverged is not None else ""))
+        if not (same_cycle and kept and same_solve and one_launch and div_ok
+                and finite):
             raise RuntimeError(f"K6 {label}: kernel disagrees with plain "
-                               f"({err}, finite {finite})")
-        errs["transport2d_cycle"].append(err)
+                               f"(cycle {err}, solve {err_s}, kept {kept}, "
+                               f"one launch {one_launch}, divergent NaN "
+                               f"{div_ok}, finite {finite})")
+        errs["transport2d"].extend([err, err_s])
+        return ms_c, ms_cp, ms_s, ms_sp, int(cyc_k.sum())
 
     # (a) config 1's batch: K3's solves of its 4 chains x 8 sources and the
     # cotangents of its log-likelihood there.
@@ -1226,28 +1410,9 @@ def main() -> int:
         resid1, torch.full_like(resid1, c1.model.sigma), None).sum(), T1)
     T1 = T1.detach()
     ws1 = batch_weights(T1, s1c, srcs1, g1, ecfg1.seed_radius)
-    done1 = torch.zeros(T1.shape[0], dtype=torch.bool, device=dev)
-    l6 = k6.launches
-    lam1_k6, ms_k6 = _timed(lambda: cuda_transport.transport_cycle(
-        ct1, ct1, ws1, ecfg1.n_inner, done1), reps=10)
-    if k6.launches == l6:
-        raise RuntimeError("K6 c1 cycle: the kernel was not launched")
-    lam1_p6, ms_k6_plain = _timed(lambda: transport_cycle_plain(
-        ct1, ct1, ws1, ecfg1.n_inner, done1))
-    print(f"K6 one cycle, c1 batch B={ct1.shape[0]} grid={g1.shape}: ms per "
-          f"launch: kernel {ms_k6:.3f}, plain {ms_k6_plain:.3f}")
-    k6_check("c1 batch (log-likelihood cotangents, one cycle)", lam1_k6,
-             lam1_p6)
-    lam_k, ms_sk = _timed(lambda: transport_solve(
-        ct1, ws1, ecfg1.tol, ecfg1.max_iters, ecfg1.n_inner,
-        cycle=cuda_transport.transport_cycle))
-    lam_p, ms_sp = _timed(lambda: transport_solve(
-        ct1, ws1, ecfg1.tol, ecfg1.max_iters, ecfg1.n_inner))
-    print(f"K6 solve c1 batch at tol {ecfg1.tol}: ms per solve kernel "
-          f"{ms_sk:.3f}, plain {ms_sp:.3f}")
-    k6_check("c1 batch (solve)", lam_k, lam_p)
-    b_k6, by_k6 = _bound(ct1.numel(), 20, _k6_ops(ecfg1.n_inner))
-    del lam1_k6, lam1_p6, lam_k, lam_p
+    ms_k6, ms_k6_plain, ms_k6s, ms_k6s_plain, k6_cycles = k6_pair(
+        "a (c1 batch, log-likelihood cotangents)", ct1.contiguous(), ws1,
+        ecfg1.tol, ecfg1.max_iters, ecfg1.n_inner)
 
     # (b) a config-4 batch: 10,000 prior-drawn particles x 8 sources,
     # weights from K3's solves, random cotangents.
@@ -1259,19 +1424,10 @@ def main() -> int:
     ws4 = batch_weights(T4, s4, srcs4, g4, ecfg4.seed_radius)
     del T4, s4, parts4
     ct4 = 0.1 * torch.randn(ws4[0].shape, generator=gen, device=dev)
-    done4 = torch.zeros(ct4.shape[0], dtype=torch.bool, device=dev)
-    l6 = k6.launches
-    lam4_k, ms_k6_c4 = _timed(lambda: cuda_transport.transport_cycle(
-        ct4, ct4, ws4, ecfg4.n_inner, done4), reps=10)
-    if k6.launches == l6:
-        raise RuntimeError("K6 c4 cycle: the kernel was not launched")
-    lam4_p, ms_k6_c4_plain = _timed(lambda: transport_cycle_plain(
-        ct4, ct4, ws4, ecfg4.n_inner, done4))
-    print(f"K6 one cycle, c4 batch B={ct4.shape[0]} grid={g4.shape}: ms per "
-          f"launch: kernel {ms_k6_c4:.3f}, plain {ms_k6_c4_plain:.3f}")
-    k6_check("c4 batch (K3-solved weights, one cycle)", lam4_k, lam4_p)
-    b_k6_c4, _ = _bound(ct4.numel(), 20, _k6_ops(ecfg4.n_inner))
-    del lam4_k, lam4_p, ct4, ws4, srcs4
+    ms_k6_c4, ms_k6_c4_plain, ms_k6s_c4, ms_k6s_c4_plain, k6_cycles_c4 = \
+        k6_pair("b (c4 batch, K3-solved weights)", ct4, ws4, ecfg4.tol,
+                ecfg4.max_iters, ecfg4.n_inner)
+    del ct4, ws4, srcs4
     torch.cuda.empty_cache()
 
     # (c) the odd anisotropic batch of phase 8 with its done flags, and a
@@ -1290,21 +1446,9 @@ def main() -> int:
                       torch.ones_like(T_o[:1])])
     done_od = torch.cat([done_o, torch.zeros(1, dtype=torch.bool,
                                              device=dev)])
-    out_k = cuda_transport.transport_cycle(g_od, g_od, ws_od, 2, done_od)
-    out_p = transport_cycle_plain(g_od, g_od, ws_od, 2, done_od)
-    if not torch.equal(out_k[done_od], g_od[done_od]):
-        raise RuntimeError("K6 odd batch: a done field was swept")
-    k6_check(f"odd batch B={g_od.shape[0]} grid={g_o.shape} spacing "
-             f"{g_o.spacing}, {int(done_od.sum())} done (one cycle)",
-             out_k, out_p)
-    lam_k = transport_solve(g_od, ws_od, 1e-6, 30, 2,
-                            cycle=cuda_transport.transport_cycle)
-    lam_p = transport_solve(g_od, ws_od, 1e-6, 30, 2)
-    if not (bool(torch.isnan(lam_k[-1]).all())
-            and bool(torch.isnan(lam_p[-1]).all())):
-        raise RuntimeError("K6 odd batch: the divergent field is not all NaN")
-    k6_check("odd batch (solve, the finite fields; the divergent one is "
-             "all NaN)", lam_k, lam_p, sel=slice(0, -1))
+    k6_pair(f"c (odd batch, spacing {g_o.spacing}, done flags, a divergent "
+            "field)", g_od, ws_od, 1e-6, 30, 2, done=done_od,
+            diverged=g_od.shape[0] - 1)
 
     # 18. Config 1's gradient on the card: K3 + K6 against the plain
     # solves, and against a central finite difference.
@@ -1360,9 +1504,15 @@ def main() -> int:
     def c1_leg(label, args):
         for k in (k1, k3, k4, k5, k6):
             k.launches = 0
+        k3.block_launches = 0
+        cycles0 = (k3.field_cycles(), k6.field_cycles())
         recs, lines, wall = _run_cli(cli, ["run", C1_CONFIG, *args])
-        launches = {"sweep2d_cycle": k3.launches,
-                    "transport2d_cycle": k6.launches}
+        launches = {"sweep2d": k3.launches,
+                    "sweep2d_block": k3.block_launches,
+                    "transport2d": k6.launches}
+        launches.update(
+            sweep2d_field_cycles=k3.field_cycles() - cycles0[0],
+            transport2d_field_cycles=k6.field_cycles() - cycles0[1])
         if min(launches.values()) <= 0:
             raise RuntimeError(f"{label}: a kernel was never launched "
                                f"({launches})")
@@ -1377,9 +1527,11 @@ def main() -> int:
 
     recs, c1_nuts_launches, init, samp, steps, rate_all, rate_last, wall = \
         c1_leg("c1 NUTS path", C1_NUTS_ARGS)
-    print(f"c1 NUTS path: launches {c1_nuts_launches} "
-          f"({c1_nuts_launches['transport2d_cycle'] / steps:.1f} K6 per step "
-          f"over {steps} steps); logpost_mean {init['logpost_mean']} -> "
+    print(f"c1 NUTS path: launches and kernel-counted cycles "
+          f"{c1_nuts_launches} ({c1_nuts_launches['transport2d'] / steps:.1f}"
+          f" K6 launches and "
+          f"{c1_nuts_launches['transport2d_field_cycles'] / steps:.1f} K6 "
+          f"field-cycles per step over {steps} steps); logpost_mean {init['logpost_mean']} -> "
           f"{samp[-1]['logpost_mean']}; mean tree depth "
           f"{mean('tree_depth'):.3f}, divergent share {mean('divergent'):.3f}, "
           f"acceptance statistic {mean('accept'):.4f}; {rate_all:.3f} "
@@ -1394,7 +1546,8 @@ def main() -> int:
     if not 0.05 < mean("accept") < 0.99:
         raise RuntimeError(f"c1 MALA path: acceptance {mean('accept')} "
                            "outside (0.05, 0.99)")
-    print(f"c1 MALA path: launches {c1_mala_launches}; Laplace setup "
+    print(f"c1 MALA path: launches and kernel-counted cycles "
+          f"{c1_mala_launches}; Laplace setup "
           f"{lap[0]['seconds']:.3f} s (MAP trace {lap[0]['logpost_first']} -> "
           f"{lap[0]['logpost_last']}); logpost_mean {init['logpost_mean']} -> "
           f"{samp[-1]['logpost_mean']}; acceptance {mean('accept'):.4f}; "
@@ -1427,10 +1580,21 @@ def main() -> int:
     # active, as in the timed launches).
     b_k4, by_k4 = _bound(s_a.numel(), 24, _k4_ops(cfg.eikonal.n_inner))
     b_k4_c3, _ = _bound(T0_3.numel(), 24, _k4_ops(ecfg3.n_inner))
-    b_k3, by_k3 = _bound(math.prod(g4.shape) * n_part * n_src4, 16,
-                         _k3_ops(ecfg4.n_inner))
-    b_k3_c1, _ = _bound(math.prod(g1.shape) * c1.sampler.n_chains * n_src1,
-                        16, _k3_ops(ecfg1.n_inner))
+    nodes4 = math.prod(g4.shape) * n_part * n_src4
+    nodes1 = math.prod(g1.shape) * c1.sampler.n_chains * n_src1
+    b_k3, by_k3 = _k3_bound(nodes4, n_part * n_src4, ecfg4.n_inner)
+    b_k3_c1, by_k3_c1 = _k3_bound(nodes1, c1.sampler.n_chains * n_src1,
+                                  ecfg1.n_inner)
+    b_k3s, by_k3s = _k3_bound(nodes4, n_part * n_src4, ecfg4.n_inner,
+                              k3_cycles)
+    b_k3s_c1, by_k3s_c1 = _k3_bound(nodes1, c1.sampler.n_chains * n_src1,
+                                    ecfg1.n_inner, k3_cycles_c1)
+    b_k6, by_k6 = _k6_bound(nodes1, ecfg1.n_inner)
+    b_k6_c4, _ = _k6_bound(nodes4, ecfg4.n_inner)
+    b_k6s, by_k6s = _k6_bound(nodes1, ecfg1.n_inner, k6_cycles,
+                              c1.sampler.n_chains * n_src1)
+    b_k6s_c4, _ = _k6_bound(nodes4, ecfg4.n_inner, k6_cycles_c4,
+                            n_part * n_src4)
     print(json.dumps({"kernels": [{
         "name": "sweep3d_cycle",
         "tpu_kernel": "sweep_axes012_fused, sweep_axes01_fused, sweep_axis0",
@@ -1470,19 +1634,84 @@ def main() -> int:
         "c3_bound_ms": b_k4_c3,
     }, {
         "name": "sweep2d_cycle",
+        "entry": "one cycle per launch (K3's C entry sweep2d_solve, solve 0), "
+                 "warp route: one warp per field",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep2d.cu",
         "replaces": "mceik_tpu/eikonal/pallas_sweep.py:890",
-        "launches": smc_launches,
-        "max_abs_err": max(errs["sweep2d_cycle"]),
-        "ms": ms_k3,
+        "launches": smc_launches - smc_block,
+        "launches_of": "K3's warp route, both entries (the SMC path runs the "
+                       "solve entry)",
+        "max_abs_err": max(errs["sweep2d"]),
+        "ms": k3_c4["warp"][0],
         "plain_ms": ms_k3_plain,
         "bound_ms": b_k3,
         "bound_by": by_k3,
         "library_ms": None,
-        "c1_ms": ms_k3_c1,
+        "c1_ms": k3_c1["warp"][0],
         "c1_plain_ms": ms_k3_c1_plain,
         "c1_bound_ms": b_k3_c1,
+    }, {
+        "name": "sweep2d_solve",
+        "entry": "each field's whole solve per launch (sweep2d_solve, "
+                 "solve 1), warp route",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/sweep2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:890 under the "
+                    "while_loop of :907",
+        "launches": smc_launches - smc_block,
+        "field_cycles": smc_cycles,
+        "max_abs_err": max(errs["sweep2d"]),
+        "ms": k3_c4["warp"][1],
+        "plain_ms": ms_k3s_plain,
+        "bound_ms": b_k3s,
+        "bound_by": by_k3s,
+        "library_ms": None,
+        "solve_field_cycles": k3_cycles,
+        "c1_ms": k3_c1["warp"][1],
+        "c1_plain_ms": ms_k3s_c1_plain,
+        "c1_bound_ms": b_k3s_c1,
+        "c1_solve_field_cycles": k3_cycles_c1,
+    }, {
+        "name": "sweep2d_block_cycle",
+        "entry": "one cycle per launch (sweep2d_solve, solve 0), block "
+                 "route: a CTA of one thread per node of a line",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/sweep2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:890",
+        "launches": c1_nuts_launches["sweep2d_block"],
+        "launches_of": "K3's block route, both entries (the c1 NUTS path "
+                       "runs the solve entry)",
+        "max_abs_err": max(errs["sweep2d"]),
+        "ms": k3_c1["block"][0],
+        "plain_ms": ms_k3_c1_plain,
+        "bound_ms": b_k3_c1,
+        "bound_by": by_k3_c1,
+        "library_ms": None,
+        "c4_ms": k3_c4["block"][0],
+        "c4_plain_ms": ms_k3_plain,
+        "c4_bound_ms": b_k3,
+    }, {
+        "name": "sweep2d_block_solve",
+        "entry": "each field's whole solve per launch (sweep2d_solve, "
+                 "solve 1), block route",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/sweep2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_sweep.py:890 under the "
+                    "while_loop of :907",
+        "launches": c1_nuts_launches["sweep2d_block"],
+        "field_cycles": c1_nuts_launches["sweep2d_field_cycles"],
+        "max_abs_err": max(errs["sweep2d"]),
+        "ms": k3_c1["block"][1],
+        "plain_ms": ms_k3s_c1_plain,
+        "bound_ms": b_k3s_c1,
+        "bound_by": by_k3s_c1,
+        "library_ms": None,
+        "solve_field_cycles": k3_cycles_c1,
+        "c1_mala_launches": c1_mala_launches["sweep2d_block"],
+        "c4_ms": k3_c4["block"][1],
+        "c4_plain_ms": ms_k3s_plain,
+        "c4_bound_ms": b_k3s,
     }, {
         "name": "transport3d_large_cycle",
         "route": "cuda",
@@ -1500,21 +1729,46 @@ def main() -> int:
         "c2_bound_ms": b_k5_c2,
     }, {
         "name": "transport2d_cycle",
+        "entry": "one cycle per launch (K6's C entry transport2d_solve, "
+                 "solve 0)",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/transport2d.cu",
         "replaces": "mceik_tpu/eikonal/pallas_transport.py:132 (2-D fields, "
                     "via transport_cycle_pallas :148)",
-        "launches": c1_nuts_launches["transport2d_cycle"],
-        "max_abs_err": max(errs["transport2d_cycle"]),
+        "launches": c1_nuts_launches["transport2d"],
+        "launches_of": "K6, both entries (the NUTS path runs the solve "
+                       "entry)",
+        "max_abs_err": max(errs["transport2d"]),
         "ms": ms_k6,
         "plain_ms": ms_k6_plain,
         "bound_ms": b_k6,
         "bound_by": by_k6,
         "library_ms": None,
-        "c1_mala_launches": c1_mala_launches["transport2d_cycle"],
         "c4_ms": ms_k6_c4,
         "c4_plain_ms": ms_k6_c4_plain,
         "c4_bound_ms": b_k6_c4,
+    }, {
+        "name": "transport2d_solve",
+        "entry": "each field's whole solve per launch (transport2d_solve, "
+                 "solve 1)",
+        "route": "cuda",
+        "source": "mceik_tpu_torch/csrc/transport2d.cu",
+        "replaces": "mceik_tpu/eikonal/pallas_transport.py:132 (2-D fields) "
+                    "under the reference's per-field cycle loop",
+        "launches": c1_nuts_launches["transport2d"],
+        "field_cycles": c1_nuts_launches["transport2d_field_cycles"],
+        "max_abs_err": max(errs["transport2d"]),
+        "ms": ms_k6s,
+        "plain_ms": ms_k6s_plain,
+        "bound_ms": b_k6s,
+        "bound_by": by_k6s,
+        "library_ms": None,
+        "solve_field_cycles": k6_cycles,
+        "c1_mala_launches": c1_mala_launches["transport2d"],
+        "c4_ms": ms_k6s_c4,
+        "c4_plain_ms": ms_k6s_c4_plain,
+        "c4_bound_ms": b_k6s_c4,
+        "c4_solve_field_cycles": k6_cycles_c4,
     }, {
         "name": "sweep3d_cycle",
         "tpu_kernel": "sweep_axis0_gridbatch (the gridbatch route)",

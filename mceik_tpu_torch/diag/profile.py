@@ -31,7 +31,11 @@ mutation steps) over the whole population: ``--warm`` stages, then
 the same particles (its bisection syncs the device once per probe), then
 ``--steps`` stages traced.
 
-Prints one JSON line: steps/s, the device's busy and idle share of the
+Prints one JSON line: steps/s, the kernels' launches per step and, for the
+2-D kernels, whose one launch runs every field's whole solve, the cycles
+they counted per step (summed over fields: ``sweep2d_field_cycles``,
+``transport2d_field_cycles``) and K3's launches of its block route
+(``sweep2d_block_launches``), the device's busy and idle share of the
 traced window (kernel and copy intervals merged), and device time by kernel
 name. Needs a CUDA device: a measurement path does not fall back to the
 CPU.
@@ -103,8 +107,28 @@ def _kernels():
     return {"sweep3d_cycle": cuda_sweep.SWEEP3D,
             "transport3d_cycle": cuda_transport.TRANSPORT3D,
             "transport3d_large_cycle": cuda_transport.TRANSPORT3D_LARGE,
-            "sweep2d_cycle": cuda_sweep.SWEEP2D,
-            "transport2d_cycle": cuda_transport.TRANSPORT2D}
+            "sweep2d": cuda_sweep.SWEEP2D,
+            "transport2d": cuda_transport.TRANSPORT2D}
+
+
+def _counts():
+    """Every kernel's launches, and the 2-D kernels' cycles summed over
+    fields as the kernels count them (one launch of K3 or K6 runs every
+    field's whole solve; one launch of K1, K4 or K5 is one cycle)."""
+    out = {}
+    for name, k in _kernels().items():
+        out[name] = k.launches
+        if hasattr(k, "field_cycles"):
+            out[f"{name}_field_cycles"] = k.field_cycles()
+        if hasattr(k, "block_launches"):
+            out[f"{name}_block_launches"] = k.block_launches
+    return out
+
+
+def _per(before, after, n):
+    """The counts that moved between two ``_counts()``, per step."""
+    return {k: (after[k] - before[k]) / n for k in after
+            if after[k] > before[k]}
 
 
 def _profile_gradients(post, gen, chain_counts):
@@ -113,22 +137,19 @@ def _profile_gradients(post, gen, chain_counts):
     from mceik_tpu_torch.model.posterior import value_and_grad
 
     vag = value_and_grad(post.logpost)
-    kernels = _kernels()
     rows = []
     for n in chain_counts:
         params = post.init_params(gen, n)
         vag(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counts0 = {k: v.launches for k, v in kernels.items()}
+        counts0 = _counts()
         t0 = time.perf_counter()
         lp, _ = vag(params)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rows.append({"n_chains": n, "ms_per_value_and_grad": ms,
-                     "launches": {k: v.launches - counts0[k]
-                                  for k, v in kernels.items()
-                                  if v.launches > counts0[k]},
+                     "launches": _per(counts0, _counts(), 1),
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "logpost_finite": bool(torch.isfinite(lp).all())})
         del params, lp
@@ -176,16 +197,14 @@ def _profile_mcmc(cfg, args, path):
                  n_steps=0, finalize_fn=finalize_fn)
     states, hyper = r.states, r.hyper
 
-    kernels = _kernels()
-    counts0 = {k: v.launches for k, v in kernels.items()}
+    counts0 = _counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = run_mcmc(kernel, None, states, hyper, gen, n_warmup=0,
                  n_steps=args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    per_step = {k: (v.launches - counts0[k]) / args.steps
-                for k, v in kernels.items() if v.launches > counts0[k]}
+    per_step = _per(counts0, _counts(), args.steps)
     info = {k: float(v.mean()) for k, v in r.info_trace.items()}
     states = r.states
     summary = _traced(lambda: run_mcmc(kernel, None, states, hyper, gen,
@@ -213,6 +232,7 @@ def _profile_smc(cfg, args, path):
             state, beta, *_ = smc.stage(post, state, beta, gen, k, target)
 
     stages(args.warm)
+    counts0 = _counts()
     beta_s, stage_s = [], []
     for _ in range(args.steps):
         torch.cuda.synchronize()
@@ -222,13 +242,15 @@ def _profile_smc(cfg, args, path):
         t0 = time.perf_counter()
         stages(1)
         stage_s.append(time.perf_counter() - t0)
+    per_step = _per(counts0, _counts(), args.steps)
     summary = _traced(lambda: stages(args.steps), path)
     per_stage = sum(stage_s) / len(stage_s)
     return {"n_particles": n, "n_mutation_steps": k, "stages": args.steps,
             "beta_after": beta, "s_per_stage": per_stage,
             "particle_mutation_steps_per_s": n * k / per_stage,
             "next_beta_ms": 1e3 * sum(beta_s) / len(beta_s),
-            "next_beta_host_share": sum(beta_s) / sum(stage_s), **summary}
+            "next_beta_host_share": sum(beta_s) / sum(stage_s),
+            "launches_per_stage": per_step, **summary}
 
 
 def main(argv=None) -> int:

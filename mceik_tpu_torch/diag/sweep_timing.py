@@ -40,6 +40,25 @@ the whole transport solve at the config's tolerance through
 ``transport_cycle`` against ``solve_cycle`` (the ring kept through the
 solve, its first cycle included), each pair equal bit for bit.
 
+``--2d`` times the 2-D kernels K3 (``csrc/sweep2d.cu``) and K6
+(``csrc/transport2d.cu``) on config 4's batch (``--cells c4``: 10,000
+prior-drawn particles x 8 sources of 48^2) and config 1's (``c1``: 4
+chains x 8 sources of 65^2): per cycle, and per whole solve at the
+config's tolerance, each in turns with the sources given by
+``--baseline-k3`` and ``--baseline-k6`` (an earlier ``sweep2d.cu`` or
+``transport2d.cu``, from ``git show``) and, for ``--variants``, sources
+whose file name holds ``sweep2d`` or ``transport2d``. Each is bound by the
+C entry ``sweep2d_solve`` / ``transport2d_solve`` (a cycle, or each
+field's whole solve, per launch). K3's two routes ("warp" and "block",
+``cuda_sweep2d.route_for``) are also timed forced, in turns with the
+wrapper's choice. Outputs and per-field cycle counts must be equal (bits
+compared as int32). K6 runs on the cell's own data: the
+batch solved by K3, its weights and the cotangent of the config's Gaussian
+log-likelihood. ``--split`` also times, in turns with each source,
+copies of it with parts taken out (``SPLITS``: its block barriers, its
+square roots, the Jacobi steps, the lane-edge shuffles, the whole sweep):
+wrong results, a diagnostic of where a cycle's time goes.
+
 Prints the card's ``nvidia-smi`` line, then one JSON line per cell. Needs
 a CUDA device; builds into ``build/kernels/``.
 """
@@ -53,11 +72,13 @@ import json
 import re
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 from mceik_tpu_torch.datasets import make_dataset
-from mceik_tpu_torch.eikonal import cuda_transport
+from mceik_tpu_torch.eikonal import (cuda_sweep2d, cuda_transport,
+                                     cuda_transport2d)
 from mceik_tpu_torch.eikonal.adjoint_sweep import (batch_weights,
                                                    transport_solve)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
@@ -74,7 +95,32 @@ from mceik_tpu_torch.model.posterior import _gaussian_loglik, build_posterior
 REPO = Path(__file__).resolve().parents[2]
 CELLS = {"c2": ("c2_checkerboard3d.json", 16),
          "c3": ("c3_joint_events.json", 8),
-         "c5": ("c5_pod_nuts.json", 4)}
+         "c5": ("c5_pod_nuts.json", 4),
+         "c4": ("c4_smc.json", 10000),
+         "c1": ("c1_crosswell.json", 4)}
+# Scratch copies of a 2-D source for --split: tag -> (text, replacement)
+# pairs, each applied where the source has it; wrong results, a diagnostic
+# of where a cycle's time goes. nobarrier and nosqrt take the block
+# barriers and the square roots out; nosteps the Jacobi steps (what is left
+# is the line visits' loads, floor and stores), noshfl the lane-edge
+# shuffles, nocycle the whole sweep (what is left is the field's load and
+# store).
+SPLITS = {
+    "nobarrier": (("__syncthreads();", ";"),),
+    "nosqrt": (("line2d::sqrt_rn(", "("), ("sqrtf(", "(")),
+    "nosteps": (("for (int it = 0; it < c.n_inner; ++it) {",
+                 "for (int it = 0; it < 0; ++it) {"),
+                ("for (int it = 0; it < n_inner; ++it) {",
+                 "for (int it = 0; it < 0; ++it) {")),
+    "noshfl": (("line2d::lane_edges(t[0], t[NPL - 1], lane, kBig, dn, up);",
+                "dn = up = kBig;"),
+               ("line2d::lane_edges(t[0], t[NPL - 1], lane, 0.0f, dn, up);",
+                "dn = up = 0.0f;")),
+    "nocycle": (("    sweep_cycle<NPL, ISO>(sT, sS, n0, n1, ld, sa, sb, s_src, "
+                 "c, lane);\n", ""),
+                ("    transport_cycle<NPL>(sL, sG, sW0, sW1, n0, n1, ld, "
+                 "n_inner, lane);\n", "")),
+}
 AXIS_LOOP = "for (int ax = 0; ax < 3; ++ax) {"
 
 
@@ -331,6 +377,119 @@ def _transport_main(args, dev) -> int:
     return 0
 
 
+def _bind2d(kind: str, source: Path, route=None):
+    """K3 (``kind`` "sweep2d", on ``route``, None for the wrapper's choice)
+    or K6 ("transport2d") built from ``source``, with ``cycle(cell)`` and
+    ``solve(cell)`` (the latter returns the result and the per-field cycle
+    counts)."""
+    if kind == "sweep2d":
+        k = cuda_sweep2d.Sweep2dKernel(source)
+        return k, SimpleNamespace(
+            cycle=lambda c: k.cycle(c.T0, c.s, c.scal, c.spacing, c.n_inner,
+                                    c.done, seed_radius=c.seed_radius,
+                                    route=route),
+            solve=lambda c: k.solve(c.T0, c.s, c.scal, c.spacing, c.n_inner,
+                                    c.tol, c.max_iters,
+                                    seed_radius=c.seed_radius, route=route))
+    k = cuda_transport2d.Transport2dKernel(source)
+    return k, SimpleNamespace(
+        cycle=lambda c: k.cycle(c.g, c.g, c.ws, c.n_inner, c.done),
+        solve=lambda c: k.solve(c.g, c.ws, c.tol, c.max_iters, c.n_inner))
+
+
+def _split_variant(source: Path, tag: str, pairs):
+    """A copy of ``source`` with each ``(old, new)`` pair it has replaced,
+    or None where it has none."""
+    text = source.read_text()
+    found = [(a, b) for a, b in pairs if a in text]
+    if not found:
+        return None
+    for a, b in found:
+        text = text.replace(a, b)
+    out = BUILD_DIR.parent / "variants" / f"{source.stem}_{tag}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
+def _main_2d(args, dev) -> int:
+    """The ``--2d`` mode: K3 and K6 per cell, against the baselines."""
+    srcs = {"sweep2d": {"new": cuda_sweep2d.SOURCE},
+            "transport2d": {"new": cuda_transport2d.SOURCE}}
+    if args.baseline_k3:
+        srcs["sweep2d"]["old"] = args.baseline_k3
+    if args.baseline_k6:
+        srcs["transport2d"]["old"] = args.baseline_k6
+    for kind in srcs:
+        for v in [Path(v) for v in args.variants.split(",") if v]:
+            if kind in v.stem:
+                srcs[kind][v.stem] = v
+        if args.split:
+            for key, src in list(srcs[kind].items()):
+                for tag, pairs in SPLITS.items():
+                    var = _split_variant(src, f"{key}_{tag}", pairs)
+                    if var is not None:
+                        srcs[kind][f"{key}_{tag}"] = var
+    bound = {kind: {key: _bind2d(kind, src) for key, src in d.items()}
+             for kind, d in srcs.items()}
+    # K3's two routes forced, beside the wrapper's choice ("new").
+    for route in cuda_sweep2d.ROUTES:
+        bound["sweep2d"][route] = _bind2d("sweep2d", cuda_sweep2d.SOURCE,
+                                          route)
+    _build([k for d in bound.values() for k, _ in d.values()])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for cell in args.cells.split(","):
+        cfg, grid, s, srcs_xyz, data, params = _batch(cell, dev, gen)
+        e = cfg.eikonal
+        T0, _ = seed_source(s, srcs_xyz, grid, e.seed_radius)
+        c = SimpleNamespace(
+            T0=T0, s=s,
+            scal=torch.cat(source_scalars(s, srcs_xyz, grid),
+                           dim=1).contiguous(),
+            spacing=grid.spacing, n_inner=e.n_inner, tol=e.tol,
+            max_iters=e.max_iters, seed_radius=e.seed_radius,
+            done=torch.zeros(T0.shape[0], dtype=torch.bool, device=dev))
+        for kind, d in bound.items():
+            if kind == "transport2d":
+                T = bound["sweep2d"]["new"][1].solve(c)[0]
+                c.ws = batch_weights(T, s, srcs_xyz, grid, e.seed_radius)
+                c.g = _cotangent(cfg, grid, data, params, T)
+                del T
+            row = {"cell": cell, "kernel": kind, "B": T0.shape[0],
+                   "grid": list(grid.shape), "n_inner": e.n_inner,
+                   "tol": e.tol}
+            new = d["new"][1]
+            out_new = new.cycle(c)
+            lam_new, cyc_new = new.solve(c)
+            row["finite"] = bool(torch.isfinite(out_new).all())
+            row["cycles_per_field_mean"] = float(cyc_new.float().mean())
+            row["cycles_per_field_max"] = int(cyc_new.max())
+            row["ms_new"] = _ms(lambda: new.cycle(c), args.reps)
+            for key, (_, other) in d.items():
+                if key == "new":
+                    continue
+                row[f"equal_{key}"] = _bits_equal(out_new, other.cycle(c))
+                row[f"ms_turns_new_{key}_{key}_new"] = _turns(
+                    lambda: new.cycle(c), lambda o=other: o.cycle(c),
+                    args.reps)
+                if key.rsplit("_", 1)[-1] in SPLITS:  # cycles only
+                    continue
+                lam_o, cyc_o = other.solve(c)
+                row[f"solve_equal_{key}"] = (_bits_equal(lam_new, lam_o)
+                                             and torch.equal(cyc_new, cyc_o))
+                row[f"ms_solve_turns_new_{key}_{key}_new"] = _turns(
+                    lambda: new.solve(c), lambda o=other: o.solve(c),
+                    max(1, args.reps // 5))
+            visits = 2 * sum(grid.shape)
+            row["us_per_line_visit_new"] = 1e3 * row["ms_new"] / visits
+            print(json.dumps(row), flush=True)
+            del out_new, lam_new
+        del c, s, T0
+        torch.cuda.empty_cache()
+    return 0
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
@@ -339,6 +498,10 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default="")
     ap.add_argument("--axes", action="store_true")
     ap.add_argument("--transport", action="store_true")
+    ap.add_argument("--2d", dest="two_d", action="store_true")
+    ap.add_argument("--baseline-k3", type=Path, default=None)
+    ap.add_argument("--baseline-k6", type=Path, default=None)
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_timing: torch sees no CUDA device")
@@ -348,6 +511,10 @@ def main(argv=None) -> int:
                          text=True).stdout.strip())
     if args.transport:
         return _transport_main(args, dev)
+    if args.two_d:
+        if args.cells == ap.get_default("cells"):
+            args.cells = "c4,c1"
+        return _main_2d(args, dev)
     new = Sweep3dKernel()
     old = FloorSweep3dKernel(args.baseline) if args.baseline else None
     axes = {}

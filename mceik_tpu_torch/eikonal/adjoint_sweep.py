@@ -160,7 +160,7 @@ TransportCycleFn = Callable[..., torch.Tensor]
 def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
                     tol: float, max_cycles: int, n_inner: int = 2,
                     cycle: TransportCycleFn = transport_cycle_plain,
-                    cycles_per_iter: int = 1) -> torch.Tensor:
+                    cycles_per_iter: int = 1, return_cycles: bool = False):
     """Solve ``lam = W^T lam + g`` for every field of the batch ``g`` by
     sweep cycles, each field on its own (what ``vmap`` of the reference's
     ``_flagged_cycle_loop`` gives).
@@ -175,7 +175,8 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
     that the NaN reaches the sampler (which rejects) instead of a silently
     wrong gradient. ``cycle`` is :func:`transport_cycle_plain` or a CUDA
     kernel's wrapper; both take ``(lam, g, wsigned, n_inner, done)``. One
-    host sync per iteration.
+    host sync per iteration. Returns lam, and with ``return_cycles`` also
+    each field's cycle count (``(B,)`` int32).
     """
     B = g.shape[0]
     dev = g.device
@@ -185,7 +186,10 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     diverged = torch.zeros(B, dtype=torch.bool, device=dev)
     d0 = torch.zeros(B, dtype=torch.float32, device=dev)
+    cycles = torch.zeros(B, dtype=torch.int32, device=dev)
     for it in range(max_cycles):
+        if return_cycles:
+            cycles += (~done).int() * cycles_per_iter
         lam_new = lam
         for _ in range(cycles_per_iter):
             lam_new = cycle(lam_new, g, wsigned, n_inner, done)
@@ -200,8 +204,43 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
         lam = lam_new
         if bool(done.all()):
             break
-    return torch.where(diverged.reshape((B,) + (1,) * (g.ndim - 1)),
-                       torch.full_like(lam, float("nan")), lam)
+    lam = torch.where(diverged.reshape((B,) + (1,) * (g.ndim - 1)),
+                      torch.full_like(lam, float("nan")), lam)
+    return (lam, cycles) if return_cycles else lam
+
+
+def transport_solve_fields_plain(g: torch.Tensor,
+                                 wsigned: Sequence[torch.Tensor], tol: float,
+                                 max_cycles: int, n_inner: int = 2):
+    """The plain version of the CUDA solve entry of K6
+    (``cuda_transport2d.Transport2dKernel.solve``): each field on its own,
+    from ``lam = g``, one plain cycle at a time until its residual is
+    ``<= tol * (1e-3 + max|g|)``, it diverges (then all NaN) or
+    ``max_cycles`` cycles, as :func:`transport_solve` decides. Returns lam
+    and each field's cycle count (``(B,)`` int32); both equal
+    :func:`transport_solve`'s, one cycle per iteration."""
+    out = g.clone()
+    cycles = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
+    tol32 = torch.tensor(tol, dtype=torch.float32, device=g.device)
+    for b in range(g.shape[0]):
+        g_b = g[b:b + 1]
+        w_b = tuple(w[b:b + 1] for w in wsigned)
+        tol_eff = tol32 * (1e-3 + g_b.abs().amax())
+        lam, d0, diverged = g_b, None, False
+        for c in range(max_cycles):
+            lam_new = transport_cycle_plain(lam, g_b, w_b, n_inner)
+            delta = (lam_new - lam).abs().amax()
+            d0 = delta if d0 is None else d0
+            lam = lam_new
+            cycles[b] = c + 1
+            if not bool(torch.isfinite(delta)) or bool(
+                    delta > DIVERGENCE_FACTOR * d0):
+                diverged = True
+                break
+            if not bool(delta > tol_eff):
+                break
+        out[b] = float("nan") if diverged else lam[0]
+    return out, cycles
 
 
 def batch_weights(T: torch.Tensor, s_b: torch.Tensor, srcs: torch.Tensor,
@@ -226,19 +265,22 @@ def transport_solve_batched(g: torch.Tensor, T: torch.Tensor, s_b: torch.Tensor,
     ``g``: cotangent fields ``(B,) + grid``; ``T``: the converged
     traveltimes; ``s_b``: per-field slowness; ``srcs``: ``(B, D)`` solve
     origins (:func:`batch_weights`). ``impl`` is the forward solve's route
-    (``solve.solve_route``): ``"xla"`` takes the plain cycle, every other
-    route the CUDA kernel for CUDA tensors (K4 or K5 for 3-D fields, K6 for
-    2-D ones; ``cuda_transport.solve_cycle``, which keeps K4's ring of g and
-    the weights through the solve) and the plain cycle for CPU tensors, with
-    the route's cycles per iteration (two on ``"blocked"``).
+    (``solve.solve_route``): ``"xla"`` takes the plain cycle under the host
+    loop :func:`transport_solve`, every other route ``cuda_transport.solve``
+    with the route's cycles per iteration (two on ``"blocked"``): on CUDA
+    tensors K6's solve for 2-D fields, one launch for every field's whole
+    solve, and the host loop around K4 or K5 for 3-D ones
+    (``cuda_transport.solve_cycle``, which keeps K4's ring of g and the
+    weights through the solve); on CPU tensors the plain cycle.
     """
     # The kernels' modules import this one for the plain cycle.
     from mceik_tpu_torch.eikonal import cuda_transport
 
     ws = batch_weights(T, s_b, srcs, grid, config.seed_radius)
     g = g.contiguous()
-    cycle = (transport_cycle_plain if impl == "xla"
-             else cuda_transport.solve_cycle(g, ws))
-    return transport_solve(g, ws, config.tol, config.max_iters,
-                           config.n_inner, cycle=cycle,
-                           cycles_per_iter=CYCLES_PER_ITER[impl])
+    if impl == "xla":
+        return transport_solve(g, ws, config.tol, config.max_iters,
+                               config.n_inner, cycle=transport_cycle_plain)
+    return cuda_transport.solve(g, ws, config.tol, config.max_iters,
+                                config.n_inner,
+                                cycles_per_iter=CYCLES_PER_ITER[impl])

@@ -9,7 +9,6 @@ the TPU backend.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -33,11 +32,13 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
       srcs: ``(B, D)`` physical source coordinates.
       impl: the reference's routes, by default ``solve.solve_route``'s
         choice from ``config.use_pallas`` and the field size:
-        ``"field"`` sweeps CUDA tensors with the CUDA kernel, one cycle per
-        iteration: K1 on a 3-D grid, which computes the seed floor from
-        four scalars per field (no floor field is built), K3 with a floor
-        operand on a 2-D one; ``"blocked"`` does the same with two cycles
-        per iteration (the reference's count on fields above 2 MB);
+        ``"field"`` sweeps CUDA tensors with the CUDA kernels, which
+        compute the seed floor from the source scalars (no floor field is
+        built), one cycle per iteration: on a 3-D grid a K1 launch per
+        cycle under the host loop ``solve.sweep_solve``, on a 2-D grid one
+        K3 launch that runs every field's whole solve
+        (``cuda_sweep.solve``); ``"blocked"`` (3-D) does the same with two
+        cycles per iteration (the reference's count on fields above 2 MB);
         ``"gridbatch"``, 3-D only, is the ``"field"`` route under the name
         of the reference's seeded route; ``"xla"`` is the plain sweep with
         a floor operand. CPU tensors take each route's plain version.
@@ -65,13 +66,12 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
                          f"{grid.shape}")
     s = s.contiguous()
     T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
-    if impl == "xla" or grid.ndim == 2:
-        floor = seed_floor(T0, frozen)
-        cycle = sweep_cycle_plain if impl == "xla" else cuda_sweep.sweep_cycle
-    else:
-        floor = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
-        cycle = functools.partial(cuda_sweep.seeded_cycle,
-                                  seed_radius=config.seed_radius)
-    return sweep_solve(T0, floor, s, grid.spacing, config.tol,
-                       config.max_iters, config.n_inner, cycle=cycle,
-                       cycles_per_iter=CYCLES_PER_ITER[impl])
+    if impl == "xla":
+        return sweep_solve(T0, seed_floor(T0, frozen), s, grid.spacing,
+                           config.tol, config.max_iters, config.n_inner,
+                           cycle=sweep_cycle_plain)
+    scal = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
+    return cuda_sweep.solve(T0, s, scal, grid.spacing, config.tol,
+                            config.max_iters, config.n_inner,
+                            seed_radius=config.seed_radius,
+                            cycles_per_iter=CYCLES_PER_ITER[impl])

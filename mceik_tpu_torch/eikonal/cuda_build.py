@@ -122,6 +122,44 @@ def done_flags(done: Optional[torch.Tensor], B: int,
     return done
 
 
+# The longest line a 2-D kernel (K3, K6) holds in one warp: 32 lanes of at
+# most 32 nodes.
+MAX_LINE = 1024
+
+
+def row_stride(n1: int) -> int:
+    """The padded row stride in shared memory: ``n1`` rounded up to an odd
+    number of floats, so that 32 consecutive nodes of a column fall in 32
+    distinct banks (see the design note in ``csrc/sweep2d.cu``)."""
+    return n1 | 1
+
+
+def check_line(name: str, grid: Tuple[int, ...]) -> None:
+    """Refuse a grid whose longest line one warp cannot hold."""
+    if max(grid, default=0) > MAX_LINE:
+        raise ValueError(f"grid {tuple(grid)}: {name} holds a line in one "
+                         f"warp, at most {MAX_LINE} nodes")
+
+
+class FieldCycles:
+    """The cycles a kernel's launches ran, summed over fields by the kernel
+    itself (one atomic add per field into a counter on each device), so
+    that reading them costs no sync until :meth:`field_cycles`."""
+
+    def __init__(self):
+        self._counters = {}
+
+    def counter(self, dev: torch.device) -> torch.Tensor:
+        key = dev.index if dev.index is not None else torch.cuda.current_device()
+        if key not in self._counters:
+            self._counters[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+        return self._counters[key]
+
+    def field_cycles(self) -> int:
+        """Cycles run so far, summed over every field of every launch."""
+        return sum(int(c.item()) for c in self._counters.values())
+
+
 def launch_threads(shape) -> int:
     """Threads of a one-CTA-per-field launch over a ``(B,) + grid`` batch:
     one per node of the largest plane of a 3-D grid, one per node of the
@@ -176,9 +214,12 @@ class NvccKernel:
             if self._fn is not None:
                 return self._fn
             t0 = time.perf_counter()
+            # The headers of csrc/ go into the key too: a source may
+            # include them.
             digest = hashlib.sha256(
-                self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+                self.source.read_bytes()
+                + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
             lib_path = BUILD_DIR / f"{self.source.stem}_{digest}.so"
             if not lib_path.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -186,8 +227,8 @@ class NvccKernel:
                     f"{lib_path.stem}.{os.getpid()}.{threading.get_ident()}"
                     ".tmp.so")
                 proc = subprocess.run(
-                    [_nvcc(self.source), *NVCC_FLAGS, "-o", str(tmp),
-                     str(self.source)],
+                    [_nvcc(self.source), *NVCC_FLAGS, "-I", str(CSRC),
+                     "-o", str(tmp), str(self.source)],
                     capture_output=True, text=True)
                 self.build_log = proc.stdout + proc.stderr
                 if proc.returncode != 0:

@@ -1,7 +1,7 @@
 """CUDA sweep kernel K1: build, bind and launch ``csrc/sweep3d.cu``; and the
-sweep-cycle dispatch of every batch to its kernel (K1 for 3-D fields, with
-the seed floor computed in the kernel from four scalars per field; K3,
-``eikonal/cuda_sweep2d.py``, for 2-D fields, with a floor operand).
+sweep dispatch of every batch to its kernel (K1 for 3-D fields, K3,
+``eikonal/cuda_sweep2d.py``, for 2-D fields; both compute the seed floor in
+the kernel from the source scalars).
 
 Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch runs one
 full sweep cycle (axes 0, 1, 2, each forward then backward) on every field
@@ -19,16 +19,18 @@ The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` and loaded with ``ctypes`` (``eikonal/cuda_build.py``).
 Nothing is built when this module is imported.
 
-:func:`seeded_cycle` launches K1 for CUDA tensors and runs its plain
-version, ``solve.sweep_seeded_cycle_plain``, for CPU tensors;
-:func:`sweep_cycle` does the same for a floor operand: K3 on 2-D CUDA
-batches, ``solve.sweep_cycle_plain`` on CPU tensors. There is no other
-fallback. A failed build or launch raises.
+:func:`seeded_cycle` launches K1 or K3's cycle for CUDA tensors and runs
+the plain version, ``solve.sweep_seeded_cycle_plain``, for CPU tensors;
+:func:`solve` runs a whole solve: K3's solve entry on CUDA 2-D batches (one
+launch), else the host loop ``solve.sweep_solve`` around
+:func:`seeded_cycle`. There is no other fallback. A failed build or launch
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Optional, Sequence
@@ -40,8 +42,8 @@ from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
                                                 check_fields, done_flags,
                                                 launch_config, launch_threads)
 from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
-from mceik_tpu_torch.eikonal.solve import (sweep_cycle_plain,
-                                           sweep_seeded_cycle_plain)
+from mceik_tpu_torch.eikonal.solve import (sweep_seeded_cycle_plain,
+                                           sweep_solve)
 
 SOURCE = CSRC / "sweep3d.cu"
 # Nodes per thread up to which K1 keeps T, s and the floor in registers and
@@ -136,42 +138,45 @@ class Sweep3dKernel(NvccKernel):
 SWEEP3D = Sweep3dKernel()
 
 
-def sweep_cycle(T: torch.Tensor, s: torch.Tensor, floor: torch.Tensor,
-                spacing: Sequence[float], n_inner: int,
-                done: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One full sweep cycle with a floor operand on the fields whose
-    ``done`` flag is clear.
-
-    CPU tensors go to the plain version (``solve.sweep_cycle_plain``), a
-    CUDA ``(B, n0, n1)`` batch to K3. K1 takes no floor operand: a CUDA
-    3-D batch goes through :func:`seeded_cycle`, and raises here.
-    """
-    if T.device.type == "cpu":
-        return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
-    if T.device.type == "cuda":
-        if T.ndim == 3:
-            return SWEEP2D(T, s, floor, spacing, n_inner, done)
-        raise ValueError("a CUDA 3-D batch takes seeded_cycle: K1 computes "
-                         "the floor from the (B, 4) source scalars")
-    raise ValueError(f"no sweep for device {T.device}")
-
-
 def seeded_cycle(T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
                  spacing: Sequence[float], n_inner: int,
                  done: Optional[torch.Tensor] = None, *,
                  seed_radius: float) -> torch.Tensor:
-    """One full sweep cycle with the seed floor rebuilt from the ``(B, 4)``
-    source scalars and ``seed_radius`` (in units of the largest spacing),
-    on the fields whose ``done`` flag is clear.
+    """One full sweep cycle with the seed floor rebuilt from the
+    ``(B, D + 1)`` source scalars and ``seed_radius`` (in units of the
+    largest spacing), on the fields whose ``done`` flag is clear.
 
-    CUDA tensors go to K1 (3-D batches only; a 2-D one raises), CPU tensors
-    to the plain version (``solve.sweep_seeded_cycle_plain``). Any other
-    device raises.
+    CUDA tensors go to K1 (a ``(B, nx, ny, nz)`` batch) or to K3's cycle
+    (a ``(B, n0, n1)`` batch), CPU tensors to the plain version
+    (``solve.sweep_seeded_cycle_plain``). Any other device raises.
     """
     if T.device.type == "cpu":
         return sweep_seeded_cycle_plain(T, s, scal, spacing, n_inner, done,
                                         seed_radius=seed_radius)
     if T.device.type == "cuda":
+        if T.ndim == 3:
+            return SWEEP2D.cycle(T, s, scal, spacing, n_inner, done,
+                                 seed_radius=seed_radius)
         return SWEEP3D(T, s, scal, spacing, n_inner, done,
                        seed_radius=seed_radius)
     raise ValueError(f"no seeded sweep for device {T.device}")
+
+
+def solve(T0: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
+          spacing: Sequence[float], tol: float, max_cycles: int,
+          n_inner: int, *, seed_radius: float,
+          cycles_per_iter: int = 1) -> torch.Tensor:
+    """The sweep solve of the kernels' routes, from ``T0`` with the seed
+    floor rebuilt from the source scalars: on a CUDA ``(B, n0, n1)`` batch
+    K3's solve, each field's whole solve in one launch; otherwise
+    ``solve.sweep_solve`` around :func:`seeded_cycle` (K1 on CUDA 3-D
+    batches, the plain cycle on CPU tensors), ``cycles_per_iter`` cycles
+    per counted iteration. The same bits and per-field counts either way."""
+    if T0.device.type == "cuda" and T0.ndim == 3:
+        return SWEEP2D.solve(T0, s, scal, spacing, n_inner, tol, max_cycles,
+                             seed_radius=seed_radius,
+                             cycles_per_iter=cycles_per_iter)[0]
+    return sweep_solve(T0, scal, s, spacing, tol, max_cycles, n_inner,
+                       cycle=functools.partial(seeded_cycle,
+                                               seed_radius=seed_radius),
+                       cycles_per_iter=cycles_per_iter)

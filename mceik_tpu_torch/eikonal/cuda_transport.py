@@ -24,8 +24,10 @@ CUDA source.
 
 The kernels are compiled by ``nvcc`` at first use (``eikonal/cuda_build.py``).
 :func:`transport_cycle` launches one for CUDA tensors and runs the plain
-version, ``adjoint_sweep.transport_cycle_plain``, for CPU tensors; there is
-no other fallback. A failed build or launch raises.
+version, ``adjoint_sweep.transport_cycle_plain``, for CPU tensors;
+:func:`solve` runs a whole solve: K6's solve entry on CUDA 2-D batches (one
+launch), else the host loop ``adjoint_sweep.transport_solve``. There is no
+other fallback. A failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from mceik_tpu_torch.eikonal.adjoint_sweep import transport_cycle_plain
+from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
+                                                   transport_solve)
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
                                                 MAX_THREADS, NvccKernel,
                                                 check_fields, done_flags,
@@ -193,7 +196,7 @@ def transport_cycle(lam: torch.Tensor, g: torch.Tensor,
         return transport_cycle_plain(lam, g, wsigned, n_inner, done)
     if lam.device.type == "cuda":
         if lam.ndim == 3:
-            return TRANSPORT2D(lam, g, wsigned, n_inner, done)
+            return TRANSPORT2D.cycle(lam, g, wsigned, n_inner, done)
         if kernel is None:
             kernel = transport_kernel_for(lam.shape[1:])
         return kernel(lam, g, wsigned, n_inner, done)
@@ -220,3 +223,20 @@ def solve_cycle(g: torch.Tensor, wsigned: Sequence[torch.Tensor]):
                              "was made for")
         return TRANSPORT3D(lam, g, wsigned, n_inner, done, ring=ring)
     return cycle
+
+
+def solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor], tol: float,
+          max_cycles: int, n_inner: int = 2,
+          cycles_per_iter: int = 1) -> torch.Tensor:
+    """The transport solve of the kernels' routes: on a CUDA
+    ``(B, n0, n1)`` batch K6's solve, each field's whole solve in one
+    launch; otherwise ``adjoint_sweep.transport_solve`` around
+    :func:`solve_cycle` (K4 or K5 on CUDA 3-D batches, the plain cycle on
+    CPU tensors), ``cycles_per_iter`` cycles per counted iteration. The same
+    bits either way."""
+    if g.device.type == "cuda" and g.ndim == 3:
+        return TRANSPORT2D.solve(g, wsigned, tol, max_cycles, n_inner,
+                                 cycles_per_iter)[0]
+    return transport_solve(g, wsigned, tol, max_cycles, n_inner,
+                           cycle=solve_cycle(g, wsigned),
+                           cycles_per_iter=cycles_per_iter)

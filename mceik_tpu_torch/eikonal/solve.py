@@ -4,10 +4,11 @@ plane-sweep solve.
 Counterpart of ``mceik_tpu/eikonal/solve.py``. Everything works on an
 explicit batch of fields ``(B,) + grid.shape``. The plain sweep here is the
 solve the port runs on CPU tensors, and the reference that the CUDA kernels
-(K1 for 3-D batches, with the floor rebuilt from the source scalars:
-:func:`sweep_seeded_cycle_plain`; K3 for 2-D batches:
-:func:`sweep_cycle_plain`; ``eikonal/cuda_sweep.py``) are held against on
-the card.
+(K1 for 3-D batches and K3's cycle for 2-D ones, both with the floor
+rebuilt from the source scalars: :func:`sweep_seeded_cycle_plain`; K3's
+solve, each field's whole solve in one launch: :func:`sweep_solve` around
+it, field by field :func:`sweep_solve_fields_plain`;
+``eikonal/cuda_sweep.py``) are held against on the card.
 
 One sweep cycle: for each axis, march the planes low -> high, then
 high -> low. A plane update takes ``a_ax = min(T[i-1], T[i+1])`` (``T[i-1]``
@@ -244,23 +245,29 @@ CycleFn = Callable[..., torch.Tensor]
 def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
                 max_cycles: int, n_inner: int,
                 cycle: CycleFn = sweep_cycle_plain,
-                cycles_per_iter: int = 1) -> torch.Tensor:
+                cycles_per_iter: int = 1, return_cycles: bool = False):
     """Fixed-point iteration of sweep cycles with PER-FIELD convergence.
 
     One counted iteration runs ``cycles_per_iter`` cycles (2 on the blocked
     route, :data:`CYCLES_PER_ITER`) with the done flags taken before them.
     A field is done once its ``max|T_after - T_before| <= tol`` over the
-    iteration and is not swept again (what ``vmap`` of the reference's
-    ``while_loop`` gives); the loop ends when every field is done or after
-    ``max_cycles`` iterations. ``cycle`` is :func:`sweep_cycle_plain` or a
-    CUDA kernel's wrapper; each takes ``(T, s, floor, spacing, n_inner,
-    done)``, where ``floor`` is a floor field or, for the seeded cycles
-    (K1, :func:`sweep_seeded_cycle_plain`), the ``(B, 4)`` source scalars.
-    One host sync per iteration.
+    iteration (a NaN residual counts as done, as ``not (NaN > tol)``) and
+    is not swept again (what ``vmap`` of the reference's ``while_loop``
+    gives); the loop ends when every field is done or after ``max_cycles``
+    iterations. ``cycle`` is :func:`sweep_cycle_plain` or a CUDA kernel's
+    wrapper; each takes ``(T, s, floor, spacing, n_inner, done)``, where
+    ``floor`` is a floor field or, for the seeded cycles
+    (``cuda_sweep.seeded_cycle``, :func:`sweep_seeded_cycle_plain`), the
+    ``(B, D + 1)`` source scalars. One host sync per iteration. Returns
+    the batch, and with ``return_cycles`` also each field's cycle count
+    (``(B,)`` int32).
     """
     T = T0
     done = torch.zeros(T0.shape[0], dtype=torch.bool, device=T0.device)
+    cycles = torch.zeros(T0.shape[0], dtype=torch.int32, device=T0.device)
     for _ in range(max_cycles):
+        if return_cycles:
+            cycles += (~done).int() * cycles_per_iter
         T_new = T
         for _ in range(cycles_per_iter):
             T_new = cycle(T_new, s, floor, spacing, n_inner, done)
@@ -269,4 +276,30 @@ def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
         T = T_new
         if bool(done.all()):
             break
-    return T
+    return (T, cycles) if return_cycles else T
+
+
+def sweep_solve_fields_plain(T0, s, scal, spacing: Sequence[float],
+                             tol: float, max_cycles: int, n_inner: int, *,
+                             seed_radius: float):
+    """The plain version of the CUDA solve entry of K3
+    (``cuda_sweep2d.Sweep2dKernel.solve``): each field on its own, from
+    ``T0`` with the floor rebuilt from its source scalars, one plain cycle
+    at a time until ``not (max|T_new - T_old| > tol)`` or ``max_cycles``
+    cycles. Returns the batch and each field's cycle count (``(B,)``
+    int32); both equal :func:`sweep_solve`'s, one cycle per iteration."""
+    out = T0.clone()
+    cycles = torch.zeros(T0.shape[0], dtype=torch.int32, device=T0.device)
+    for b in range(T0.shape[0]):
+        T = T0[b:b + 1]
+        for c in range(max_cycles):
+            T_new = sweep_seeded_cycle_plain(T, s[b:b + 1], scal[b:b + 1],
+                                             spacing, n_inner,
+                                             seed_radius=seed_radius)
+            delta = (T_new - T).abs().amax()
+            T = T_new
+            cycles[b] = c + 1
+            if not bool(delta > tol):
+                break
+        out[b] = T[0]
+    return out, cycles

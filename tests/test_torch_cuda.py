@@ -6,21 +6,24 @@ it; there, skip tests/conftest.py (which configures JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from mceik_tpu_torch.eikonal import (cuda_sweep, cuda_sweep2d, cuda_transport,
                                      cuda_transport2d)
-from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
-                                                   transport_solve,
-                                                   transport_weights)
+from mceik_tpu_torch.eikonal.adjoint_sweep import (
+    transport_cycle_plain, transport_solve, transport_solve_fields_plain,
+    transport_weights)
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
-from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                           seed_source, source_scalars,
-                                           sweep_cycle_plain,
+from mceik_tpu_torch.eikonal.cuda_build import MAX_SMEM_BYTES, NvccKernel
+from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_source,
+                                           source_scalars,
                                            sweep_seeded_cycle_plain,
-                                           sweep_solve)
+                                           sweep_solve,
+                                           sweep_solve_fields_plain)
 from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.model.params import slowness_from_u
 
@@ -104,8 +107,6 @@ def test_kernel_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="shared"):
         big = torch.zeros((1, 8, 140, 140), device=dev)
         k(big, big, scal, g.spacing, 2, seed_radius=3.0)
-    with pytest.raises(ValueError, match="seeded_cycle"):
-        cuda_sweep.sweep_cycle(T0, s, T0, g.spacing, 2)
     np.testing.assert_array_equal(
         k(T0, s, scal, g.spacing, 2, torch.ones(1, dtype=torch.bool,
                                                  device=dev),
@@ -309,78 +310,215 @@ def test_transport_kernels_bit_for_bit(dev, shape, kernels):
 
 
 def _batch2d(dev, B, shape, spacing, seed=6, amp=0.3):
-    """B random smooth 2-D fields with sources spread over the grid."""
+    """B random smooth 2-D fields with sources spread over the grid; returns
+    the grid, s, the sources, the seeds T0 and the (B, 3) source scalars."""
     gen = torch.Generator().manual_seed(seed)
     g = Grid(shape, spacing)
-    u = amp * torch.randn((B, 6, 6), generator=gen)
+    u = amp * torch.randn((B,) + tuple(min(6, n) for n in shape),
+                          generator=gen)
     s = slowness_from_u(u, g, torch.tensor(1.0)).to(dev)
     ext = torch.tensor(g.extent)
     srcs = ((0.05 + 0.9 * torch.rand((B, 2), generator=gen)) * ext).to(dev)
-    T0, frozen = seed_source(s, srcs, g, 3.0)
-    return g, s, srcs, T0, seed_floor(T0, frozen)
+    T0, _ = seed_source(s, srcs, g, 3.0)
+    return g, s, srcs, T0, torch.cat(source_scalars(s, srcs, g),
+                                     dim=1).contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,shape,spacing", [
+# (B, grid, spacing): the main paths' batches, odd shapes and each 2-D
+# kernel's largest grids.
+SHAPES_2D = [
     (32, (65, 65), (1.0, 1.0)),       # config 1's batch: 4 chains x 8 sources
     (1000, (48, 48), (1.0, 1.0)),     # config 4's field, a slice of its batch
     (7, (37, 23), (1.0, 1.25)),       # odd, non-square, weighted local solve
-])
-def test_sweep2d_cycle_matches_plain(dev, B, shape, spacing):
-    """One K3 launch equals one plain 2-D cycle (the same fp32 operations
-    in the same order; bar 1e-4, expected 0), and done fields come back
-    untouched."""
-    g, s, _, T0, fl = _batch2d(dev, B, shape, spacing)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    done[1::3] = True
-    launches = cuda_sweep2d.SWEEP2D.launches
-    out = cuda_sweep.sweep_cycle(T0, s, fl, g.spacing, 2, done)
-    torch.cuda.synchronize()
-    assert cuda_sweep2d.SWEEP2D.launches == launches + 1
-    ref = sweep_cycle_plain(T0, s, fl, g.spacing, 2, done)
-    assert float((out - ref).abs().max()) <= 1e-4
-    assert torch.equal(out[done], T0[done])
-    assert float((out[0] - T0[0]).abs().max()) > 1.0
-    for n_inner in (1, 3):
-        out = cuda_sweep2d.SWEEP2D(T0, s, fl, g.spacing, n_inner)
-        ref = sweep_cycle_plain(T0, s, fl, g.spacing, n_inner)
-        assert float((out - ref).abs().max()) <= 1e-4
+    (5, (1, 97), (1.0, 1.0)),         # one row
+    (5, (97, 1), (1.0, 1.0)),         # one column
+    (6, (61, 67), (1.0, 1.0)),        # prime sides
+]
+K3_LARGEST = [(3, (169, 169), (1.0, 1.0)),   # the largest square K3 takes
+              (3, (28, 1024), (1.0, 1.0))]   # its longest line, 32 per lane
+K6_LARGEST = [(3, (120, 120), (1.0, 1.0)),   # the largest square K6 takes
+              (3, (14, 1024), (1.0, 1.0))]   # its longest line
+
+
+def _k3_routes(shape):
+    """K3's routes whose shared memory holds a field of ``shape``."""
+    return [r for r in cuda_sweep2d.ROUTES if r == "warp"
+            or cuda_sweep2d.block_smem_bytes(shape) <= MAX_SMEM_BYTES]
 
 
 @pytest.mark.cuda
-def test_sweep2d_solve_matches_plain_solve(dev):
-    """A whole 2-D batched solve at tol 1e-5 through K3 equals the plain
-    solve on the card within 1e-4, per-field convergence included."""
-    g, s, srcs, _, _ = _batch2d(dev, 9, (41, 29), (1.0, 1.0), amp=0.6)
+@pytest.mark.parametrize("B,shape,spacing", SHAPES_2D + K3_LARGEST)
+def test_sweep2d_cycle_matches_plain(dev, B, shape, spacing):
+    """One launch of K3's cycle equals one plain 2-D cycle bit for bit (the
+    same fp32 operations in the same order, torch's NaN-propagating min and
+    max), on each route the grid fits, for n_inner 2, 1 and 3, and done
+    fields come back untouched."""
+    g, s, _, T0, scal = _batch2d(dev, B, shape, spacing)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    done[1::3] = True
     launches = cuda_sweep2d.SWEEP2D.launches
-    out = solve_eikonal_batched(s, srcs, g, EikonalConfig(tol=1e-5,
-                                                          max_iters=100))
-    assert cuda_sweep2d.SWEEP2D.launches > launches
-    ref = solve_eikonal_batched(s, srcs, g, EikonalConfig(
-        tol=1e-5, max_iters=100, use_pallas="off"))
-    assert torch.isfinite(out).all()
-    assert float((out - ref).abs().max()) <= 1e-4
-    T0, frozen = seed_source(s, srcs, g, 3.0)
-    out2 = sweep_solve(T0, seed_floor(T0, frozen), s, g.spacing, 1e-5, 100, 2,
-                       cycle=cuda_sweep.sweep_cycle)
-    assert torch.equal(out, out2)
+    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, done,
+                                  seed_radius=3.0)
+    torch.cuda.synchronize()
+    assert cuda_sweep2d.SWEEP2D.launches == launches + 1
+    ref = sweep_seeded_cycle_plain(T0, s, scal, g.spacing, 2, done,
+                                   seed_radius=3.0)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(out[done]), _bits(T0[done]))
+    assert float((out[0] - T0[0]).abs().max()) > 0.5
+    for route in _k3_routes(shape):
+        blocks = cuda_sweep2d.SWEEP2D.block_launches
+        out = cuda_sweep2d.SWEEP2D.cycle(T0, s, scal, g.spacing, 2, done,
+                                         seed_radius=3.0, route=route)
+        assert cuda_sweep2d.SWEEP2D.block_launches == blocks + (
+            route == "block")
+        assert torch.equal(_bits(out), _bits(ref)), route
+        for n_inner in (1, 3):
+            out = cuda_sweep2d.SWEEP2D.cycle(T0, s, scal, g.spacing, n_inner,
+                                             seed_radius=3.0, route=route)
+            ref_n = sweep_seeded_cycle_plain(T0, s, scal, g.spacing, n_inner,
+                                             seed_radius=3.0)
+            assert torch.equal(_bits(out), _bits(ref_n)), (route, n_inner)
+
+
+@pytest.mark.cuda
+def test_sweep2d_sqrt_matches_sqrtf(dev):
+    """The branch-free square root of the 2-D kernels (``line2d::sqrt_rn``)
+    equals sqrtf bit for bit on every float from 1e-12 (the smallest value
+    the kernels take a root of) to +inf, and NaN on NaN."""
+    import ctypes
+
+    vp, cu = ctypes.c_void_p, ctypes.c_uint32
+    k = NvccKernel(cuda_sweep2d.SOURCE, "sweep2d_sqrt_mismatches",
+                   [cu, cu, vp, ctypes.c_int, vp])
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    lo = int(np.float32(1e-12).view(np.uint32))
+    hi = 0x7fc00001  # up to +inf and the first NaNs
+    assert k.build()(lo, hi - lo, bad.data_ptr(), dev.index or 0,
+                     torch.cuda.current_stream(dev).cuda_stream) == 0
+    assert int(bad.item()) == 0
+
+
+def _mixed_2d(dev, B, shape, spacing):
+    """A batch whose fields converge at different cycles: field 0 starts at
+    its own fixed point, field 1 (when B > 2) has a NaN in its slowness."""
+    g, s, srcs, T0, scal = _batch2d(dev, B, shape, spacing, amp=0.6)
+    T0[0] = solve_eikonal_batched(s[:1], srcs[:1], g, EikonalConfig(
+        tol=1e-7, max_iters=300, use_pallas="off"))[0]
+    if B > 2:
+        s[1, shape[0] // 2, shape[1] // 2] = float("nan")
+        scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
+        T0[1] = seed_source(s[1:2], srcs[1:2], g, 3.0)[0][0]
+    return g, s, srcs, T0, scal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,shape,spacing,tol,max_cycles", [
+    (9, (41, 29), (1.0, 1.0), 1e-5, 100),
+    (7, (37, 23), (1.0, 1.25), 1e-5, 100),
+    (5, (1, 97), (1.0, 1.0), 1e-5, 100),
+    (6, (61, 67), (1.0, 1.0), 0.0, 3),       # cut at max_cycles
+    (4, (48, 48), (1.0, 1.0), 1e-3, 0),      # no cycle at all
+    (3, (169, 169), (1.0, 1.0), 1e-4, 60),
+    (3, (28, 1024), (1.0, 1.0), 1e-4, 40),
+])
+def test_sweep2d_solve_matches_plain_solve(dev, B, shape, spacing, tol,
+                                           max_cycles):
+    """K3's solve entry (each field's whole solve in one launch) equals the
+    host loop around the plain cycle bit for bit, NaN included, with the
+    same per-field cycle counts, on batches that mix a field done in one
+    cycle, a field with a NaN in s (done after one cycle, as not (NaN >
+    tol)) and strongly contrasted fields; and the plain per-field loop on
+    the small ones. ``solve_eikonal_batched`` on the card is one K3
+    launch."""
+    g, s, srcs, T0, scal = _mixed_2d(dev, B, shape, spacing)
+    ref, ref_cycles = sweep_solve(
+        T0, scal, s, g.spacing, tol, max_cycles, 2, return_cycles=True,
+        cycle=lambda *a: sweep_seeded_cycle_plain(*a, seed_radius=3.0))
+    for route in _k3_routes(shape):
+        launches = cuda_sweep2d.SWEEP2D.launches
+        out, cycles = cuda_sweep2d.SWEEP2D.solve(
+            T0, s, scal, g.spacing, 2, tol, max_cycles, seed_radius=3.0,
+            route=route)
+        torch.cuda.synchronize()
+        assert cuda_sweep2d.SWEEP2D.launches == launches + 1
+        assert torch.equal(_bits(out), _bits(ref)), route
+        assert torch.equal(cycles, ref_cycles), route
+    if max_cycles == 0:
+        assert torch.equal(_bits(out), _bits(T0)) and not cycles.any()
+    elif tol > 0 and min(shape) > 1:
+        assert int(cycles[0]) == 1 and int(cycles.max()) > 2
+    if B > 2 and max_cycles > 0:
+        assert torch.isnan(out[1]).any() and int(cycles[1]) == 1
+    if math.prod(shape) < 5000:
+        fields, field_cycles = sweep_solve_fields_plain(
+            T0, s, scal, g.spacing, tol, max_cycles, 2, seed_radius=3.0)
+        assert torch.equal(_bits(out), _bits(fields))
+        assert torch.equal(cycles, field_cycles)
+    launches = cuda_sweep2d.SWEEP2D.launches
+    T = solve_eikonal_batched(s, srcs, g, EikonalConfig(
+        tol=tol, max_iters=max_cycles))
+    assert cuda_sweep2d.SWEEP2D.launches == launches + 1
+    T_p = solve_eikonal_batched(s, srcs, g, EikonalConfig(
+        tol=tol, max_iters=max_cycles, use_pallas="off"))
+    assert torch.equal(_bits(T), _bits(T_p))
 
 
 @pytest.mark.cuda
 def test_sweep2d_wrapper_checks_inputs(dev):
-    g, s, _, T0, fl = _batch2d(dev, 2, (16, 12), (1.0, 1.0))
+    """On the card, K3's wrapper refuses the wrong dtype, a non-contiguous
+    operand, a field beyond one block's shared memory, a line beyond a
+    warp, host tensors and a two-cycle iteration; a done field is left as
+    it came."""
+    g, s, _, T0, scal = _batch2d(dev, 2, (16, 12), (1.0, 1.0))
     k = cuda_sweep2d.SWEEP2D
     with pytest.raises(ValueError, match="float32"):
-        k(T0.double(), s, fl, g.spacing, 2)
+        k.cycle(T0.double(), s, scal, g.spacing, 2, seed_radius=3.0)
     with pytest.raises(ValueError, match="contiguous"):
-        k(T0, s.transpose(1, 2).contiguous().transpose(1, 2), fl, g.spacing, 2)
+        k.cycle(T0, s.transpose(1, 2).contiguous().transpose(1, 2), scal,
+                g.spacing, 2, seed_radius=3.0)
     with pytest.raises(ValueError, match="shared"):
-        big = torch.zeros((1, 200, 120), device=dev)
-        k(big, big, big, (1.0, 1.0), 2)
+        big = torch.zeros((1, 170, 170), device=dev)
+        k.cycle(big, big, big[:, 0, :3].contiguous(), (1.0, 1.0), 2,
+                seed_radius=3.0)
+    with pytest.raises(ValueError, match="1024"):
+        long = torch.zeros((1, 2, 1025), device=dev)
+        k.cycle(long, long, long[:, 0, :3].contiguous(), (1.0, 1.0), 2,
+                seed_radius=3.0)
     with pytest.raises(ValueError, match="CUDA"):
-        k(T0.cpu(), s.cpu(), fl.cpu(), g.spacing, 2)
-    done = torch.ones(2, dtype=torch.bool, device=dev)
-    assert torch.equal(k(T0, s, fl, g.spacing, 2, done), T0)
+        k.cycle(T0.cpu(), s.cpu(), scal.cpu(), g.spacing, 2, seed_radius=3.0)
+    with pytest.raises(ValueError, match="scal"):
+        k.cycle(T0, s, scal[:, :2].contiguous(), g.spacing, 2,
+                seed_radius=3.0)
+    with pytest.raises(ValueError, match="one cycle per counted"):
+        k.solve(T0, s, scal, g.spacing, 2, 1e-3, 10, seed_radius=3.0,
+                cycles_per_iter=2)
+    with pytest.raises(ValueError, match="route"):
+        k.cycle(T0, s, scal, g.spacing, 2, seed_radius=3.0, route="lane")
+    with pytest.raises(ValueError, match="block route"):
+        wide = torch.zeros((1, 28, 1024), device=dev)
+        k.cycle(wide, wide, wide[:, 0, :3].contiguous(), (1.0, 1.0), 2,
+                seed_radius=3.0, route="block")
+    for route in cuda_sweep2d.ROUTES:
+        done = torch.ones(2, dtype=torch.bool, device=dev)
+        assert torch.equal(k.cycle(T0, s, scal, g.spacing, 2, done,
+                                   seed_radius=3.0, route=route), T0)
+
+
+@pytest.mark.cuda
+def test_sweep2d_route_for(dev):
+    """K3's wrapper takes the block route for a batch of no more fields
+    than the card has SMs whose block fits, else the warp route: config
+    1's 32 fields of 65^2 go to the block, config 4's 80,000 of 48^2 and a
+    28 x 1024 grid (too large for the block's line buffers) to the warp."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route_for = cuda_sweep2d.route_for
+    assert route_for(32, (65, 65), dev) == "block"
+    assert route_for(sms, (48, 48), dev) == "block"
+    assert route_for(sms + 1, (48, 48), dev) == "warp"
+    assert route_for(80000, (48, 48), dev) == "warp"
+    assert route_for(3, (28, 1024), dev) == "warp"
+    assert route_for(3, (169, 169), dev) == "block"
 
 
 # Config 3's batch: 8 chains x 16 surface stations = 128 fields of 48x48x32
@@ -499,15 +637,11 @@ def _transport_batch2d(dev, B, shape, spacing, seed=7):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,shape,spacing", [
-    (32, (65, 65), (1.0, 1.0)),       # config 1's batch
-    (7, (37, 23), (1.0, 1.25)),       # odd, anisotropic, non-square
-    (3, (119, 119), (1.0, 1.0)),      # the largest square K6 takes
-])
+@pytest.mark.parametrize("B,shape,spacing", SHAPES_2D + K6_LARGEST)
 def test_transport2d_cycle_matches_plain(dev, B, shape, spacing):
-    """One K6 launch equals one plain 2-D transport cycle bit for bit (the
-    same fp32 operations in the same order), and a done field passes
-    through untouched."""
+    """One launch of K6's cycle equals one plain 2-D transport cycle bit for
+    bit (the same fp32 operations in the same order), for n_inner 2, 1 and
+    3, and a done field passes through untouched."""
     ws, g = _transport_batch2d(dev, B, shape, spacing)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     done[1] = True
@@ -515,34 +649,68 @@ def test_transport2d_cycle_matches_plain(dev, B, shape, spacing):
     out = cuda_transport.transport_cycle(g, g, ws, 2, done)
     torch.cuda.synchronize()
     assert cuda_transport2d.TRANSPORT2D.launches == launches + 1
-    assert torch.equal(out, transport_cycle_plain(g, g, ws, 2, done))
-    assert torch.equal(out[1], g[1])
+    assert torch.equal(_bits(out),
+                       _bits(transport_cycle_plain(g, g, ws, 2, done)))
+    assert torch.equal(_bits(out[1]), _bits(g[1]))
     assert float((out[0] - g[0]).abs().max()) > 0.0
     for n_inner in (1, 3):
-        assert torch.equal(cuda_transport.transport_cycle(g, g, ws, n_inner),
-                           transport_cycle_plain(g, g, ws, n_inner))
+        assert torch.equal(
+            _bits(cuda_transport.transport_cycle(g, g, ws, n_inner)),
+            _bits(transport_cycle_plain(g, g, ws, n_inner)))
 
 
 @pytest.mark.cuda
-def test_transport2d_solve_and_divergence(dev):
-    """A whole 2-D transport solve at tol 1e-7 through K6 equals the plain
-    solve bit for bit; a divergent field appended comes back all NaN."""
-    ws, g = _transport_batch2d(dev, 4, (48, 48), (1.0, 1.0))
+@pytest.mark.parametrize("B,shape,spacing,tol,max_cycles", [
+    (4, (48, 48), (1.0, 1.0), 1e-7, 100),
+    (7, (37, 23), (1.0, 1.25), 1e-6, 100),
+    (5, (97, 1), (1.0, 1.0), 1e-6, 100),
+    (6, (61, 67), (1.0, 1.0), 0.0, 3),       # cut at max_cycles
+    (3, (65, 65), (1.0, 1.0), 1e-4, 0),      # no cycle at all
+    (3, (120, 120), (1.0, 1.0), 1e-6, 60),
+    (3, (14, 1024), (1.0, 1.0), 1e-6, 40),
+])
+def test_transport2d_solve_and_divergence(dev, B, shape, spacing, tol,
+                                          max_cycles):
+    """K6's solve entry (each field's whole solve in one launch) equals the
+    host loop around the plain cycle bit for bit, compared as int32, with
+    the same per-field cycle counts, on a batch with a divergent field
+    appended (node pairs feeding each other with weight 1.3: all NaN in
+    both) and a NaN in one field's g; and the plain per-field loop on the
+    small ones. ``cuda_transport.solve`` on the card is one K6 launch."""
+    ws, g = _transport_batch2d(dev, B, shape, spacing)
+    g = g * (10.0 ** torch.arange(B, device=dev).remainder(3) - 1.0
+             ).reshape(B, 1, 1)
+    g[-1, shape[0] // 2, shape[1] // 2] = float("nan")
     div = []
     for d in range(2):
-        idx = torch.arange(48, device=dev).reshape([-1 if e == d else 1
-                                                    for e in range(2)])
-        div.append(torch.where(idx % 2 == 0, -1.3, 1.3).expand(48, 48))
+        idx = torch.arange(shape[d], device=dev).reshape(
+            [-1 if e == d else 1 for e in range(2)])
+        div.append(torch.where(idx % 2 == 0, -1.3, 1.3).expand(shape))
     wd = tuple(torch.cat([w, dv[None]]).contiguous()
                for w, dv in zip(ws, div))
     gd = torch.cat([g, torch.ones_like(g[:1])])
     launches = cuda_transport2d.TRANSPORT2D.launches
-    out = transport_solve(gd, wd, 1e-7, 100, 2,
-                          cycle=cuda_transport.transport_cycle)
-    assert cuda_transport2d.TRANSPORT2D.launches > launches
-    ref = transport_solve(gd, wd, 1e-7, 100, 2)
-    assert torch.isnan(out[4]).all() and torch.isfinite(out[:4]).all()
-    assert torch.equal(out[:4], ref[:4])
+    out, cycles = cuda_transport2d.TRANSPORT2D.solve(gd, wd, tol, max_cycles,
+                                                     2)
+    torch.cuda.synchronize()
+    assert cuda_transport2d.TRANSPORT2D.launches == launches + 1
+    ref, ref_cycles = transport_solve(gd, wd, tol, max_cycles, 2,
+                                      return_cycles=True)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(cycles, ref_cycles)
+    if max_cycles >= 40:
+        assert torch.isnan(out[-1]).all() and int(cycles[-1]) < max_cycles
+    if max_cycles > 0:
+        assert torch.isnan(out[-2]).all()
+    if math.prod(shape) < 5000:
+        fields, field_cycles = transport_solve_fields_plain(gd, wd, tol,
+                                                            max_cycles, 2)
+        assert torch.equal(_bits(out), _bits(fields))
+        assert torch.equal(cycles, field_cycles)
+    launches = cuda_transport2d.TRANSPORT2D.launches
+    lam = cuda_transport.solve(gd, wd, tol, max_cycles, 2)
+    assert cuda_transport2d.TRANSPORT2D.launches == launches + 1
+    assert torch.equal(_bits(lam), _bits(ref))
 
 
 @pytest.mark.cuda
@@ -550,12 +718,17 @@ def test_transport2d_wrapper_checks_inputs(dev):
     k = cuda_transport2d.TRANSPORT2D
     x = torch.zeros((2, 16, 16), device=dev)
     with pytest.raises(ValueError, match="float32"):
-        k(x.double(), x, (x, x), 2)
+        k.cycle(x.double(), x, (x, x), 2)
     with pytest.raises(ValueError, match="contiguous"):
-        k(x, x, (x, x.transpose(1, 2)), 2)
-    with pytest.raises(ValueError, match="120\\^2"):
-        big = torch.zeros((1, 120, 120), device=dev)
-        k(big, big, (big, big), 2)
+        k.cycle(x, x, (x, x.transpose(1, 2)), 2)
+    with pytest.raises(ValueError, match="121\\^2"):
+        big = torch.zeros((1, 121, 121), device=dev)
+        k.cycle(big, big, (big, big), 2)
+    with pytest.raises(ValueError, match="1024"):
+        long = torch.zeros((1, 2, 1025), device=dev)
+        k.solve(long, (long, long), 1e-6, 10)
+    with pytest.raises(ValueError, match="one cycle per counted"):
+        k.solve(x, (x, x), 1e-6, 10, cycles_per_iter=2)
 
 
 @pytest.mark.cuda

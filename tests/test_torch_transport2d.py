@@ -3,9 +3,12 @@ on the CPU, and the 2-D gradient path it opens (config 1's geometry under
 the gradient samplers). The plain 2-D transport cycle is what the CUDA
 kernel K6 (``csrc/transport2d.cu``) is held against on the card; here it is
 held against the TPU kernel it replaces, ``transport_axis0`` through
-``transport_cycle_pallas`` in interpret mode, and its solve against JAX's
-plain solve. Then the CPU dispatch of ``cuda_transport.transport_cycle`` on
-2-D batches, divergence, K6's shared-memory limit, the c1-shaped logpost
+``transport_cycle_pallas`` in interpret mode, and its solve, batched and
+field by field (the plain version of K6's solve entry), against JAX's
+plain solve. Then the per-field loop against the batch host loop, bit for
+bit with the cycle counts, the CPU dispatch of
+``cuda_transport.transport_cycle`` on 2-D batches, divergence, K6's
+shared-memory limit, the c1-shaped logpost
 gradient against ``jax.value_and_grad`` and a finite difference, and HMC
 with the annealed spike-slab Gibbs scan on a crosswell. Inputs are made
 with numpy from seeds; tolerances are stated per test. K6 itself is tested
@@ -88,13 +91,18 @@ def test_plain_cycle_matches_pallas_interpret(batch33, n):
         np.testing.assert_allclose(out[b].numpy(), ref, atol=1e-5)
 
 
-def test_plain_solve_matches_jax_plain_solve(batch33):
-    """The port's plain 2-D solve against JAX's
-    ``transport_solve(use_pallas="off")`` at tol 1e-7, per field: atol 1e-5
-    (the bar of test_torch_adjoint.py in 3-D), and a fixed-point residual
-    under ``apply_WT`` below 1e-5."""
+@pytest.mark.parametrize("solver", ["batched", "per_field"])
+def test_plain_solve_matches_jax_plain_solve(batch33, solver):
+    """The port's plain 2-D solve, batched and field by field
+    (``transport_solve_fields_plain``, the plain version of K6's solve
+    entry), against JAX's ``transport_solve(use_pallas="off")`` at tol
+    1e-7, per field: atol 1e-5 (the bar of test_torch_adjoint.py in 3-D),
+    and a fixed-point residual under ``apply_WT`` below 1e-5."""
     ws, g = batch33
-    lam = tas.transport_solve(g, ws, 1e-7, 100)
+    if solver == "batched":
+        lam = tas.transport_solve(g, ws, 1e-7, 100)
+    else:
+        lam = tas.transport_solve_fields_plain(g, ws, 1e-7, 100)[0]
     for b in range(g.shape[0]):
         ref = np.asarray(jas.transport_solve(
             jnp.asarray(g[b].numpy()),
@@ -143,22 +151,81 @@ def test_3d_kernel_on_2d_batch_raises(batch33, kernel):
     assert (k.launches, cuda_transport2d.TRANSPORT2D.launches) == counts
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _divergent(ws, g):
+    """The batch with a divergent field appended: node pairs feeding each
+    other with weight 1.3, g = 1."""
+    div = []
+    for d, n in enumerate(g.shape[1:]):
+        idx = torch.arange(n).reshape([-1 if e == d else 1 for e in range(2)])
+        div.append(torch.where(idx % 2 == 0, -1.3, 1.3).expand(g.shape[1:]))
+    return (tuple(torch.cat([w, dv[None]]) for w, dv in zip(ws, div)),
+            torch.cat([g, torch.ones_like(g[:1])]))
+
+
+@pytest.mark.parametrize("case", ["mixed", "divergent", "nan_in_g"])
+def test_per_field_loop_equals_batch_loop(batch33, case):
+    """The plain per-field transport loop (each field alone until it
+    converges or diverges) equals the batch host loop ``transport_solve``
+    bit for bit, compared as int32 (NaN included), with the same per-field
+    cycle counts, on the odd batch at tol 1e-6 (fields converge at
+    different cycles), with a divergent field appended (all NaN in both,
+    stopped by the divergence test), and with a NaN in one field's g; and
+    ``cuda_transport.solve`` on these CPU tensors is that host loop."""
+    ws, g = batch33
+    g = g * torch.tensor([1.0, 30.0, 0.01]).reshape(3, 1, 1)
+    if case == "divergent":
+        ws, g = _divergent(ws, g)
+    if case == "nan_in_g":
+        g = g.clone()
+        g[1, 4, 7] = float("nan")
+    ref, ref_cycles = tas.transport_solve(g, ws, 1e-6, 40,
+                                          return_cycles=True)
+    out, cycles = tas.transport_solve_fields_plain(g, ws, 1e-6, 40)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(cycles, ref_cycles)
+    launches = cuda_transport2d.TRANSPORT2D.launches
+    assert torch.equal(_bits(cuda_transport.solve(g, ws, 1e-6, 40)),
+                       _bits(ref))
+    assert cuda_transport2d.TRANSPORT2D.launches == launches
+    counts = cycles.tolist()
+    if case == "mixed":
+        assert len(set(counts)) > 1 and max(counts) < 40
+    elif case == "divergent":
+        assert torch.isnan(out[3]).all() and torch.isfinite(out[:3]).all()
+        assert counts[3] < 40
+    else:
+        assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2]]).all()
+
+
 def test_k6_wrapper_limits_and_refusals():
-    """K6's wrapper states its shared-memory limit (four fp32 fields: 119^2
-    but not 120^2) before it looks at the device, refuses CPU tensors and
-    a wrong weight count; without nvcc its build raises."""
+    """K6's wrapper states its shared-memory limit (four fp32 fields: 120^2
+    but not 121^2) before it looks at the device, refuses CPU tensors, a
+    wrong weight count, a line longer than a warp holds and a solve of more
+    than one cycle per iteration; without nvcc its build raises."""
     assert cuda_transport2d.field_limit().startswith(
-        "4 fp32 fields of the whole grid fit 119^2 (14161 nodes) but not "
-        "120^2")
-    assert cuda_transport2d.smem_bytes((65, 65)) == 4 * (4 * 65 * 65 + 2 * 96)
-    big = torch.zeros((1, 120, 120))
-    with pytest.raises(ValueError, match="119\\^2 .* but not 120\\^2"):
-        cuda_transport2d.TRANSPORT2D(big, big, (big, big), 2)
+        "4 fp32 fields of the whole grid fit 120^2 (14400 nodes) but not "
+        "121^2")
+    assert cuda_transport2d.smem_bytes((65, 65)) == 4 * 4 * 65 * 65
+    big = torch.zeros((1, 121, 121))
+    with pytest.raises(ValueError, match="120\\^2 .* but not 121\\^2"):
+        cuda_transport2d.TRANSPORT2D.cycle(big, big, (big, big), 2)
     x = torch.zeros((2, 65, 65))
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_transport2d.TRANSPORT2D(x, x, (x, x), 2)
+        cuda_transport2d.TRANSPORT2D.cycle(x, x, (x, x), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_transport2d.TRANSPORT2D.solve(x, (x, x), 1e-6, 10)
     with pytest.raises(ValueError, match="two weight fields"):
-        cuda_transport2d.TRANSPORT2D(x, x, (x, x, x), 2)
+        cuda_transport2d.TRANSPORT2D.cycle(x, x, (x, x, x), 2)
+    with pytest.raises(ValueError, match="at most 1024 nodes"):
+        long = torch.zeros((1, 3, 1025))
+        cuda_transport2d.TRANSPORT2D.cycle(long, long, (long, long), 2)
+    with pytest.raises(ValueError, match="one cycle per counted"):
+        cuda_transport2d.TRANSPORT2D.solve(x, (x, x), 1e-6, 10,
+                                           cycles_per_iter=2)
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -202,9 +269,9 @@ def test_c1_shaped_gradient_matches_jax(c1_models, use_pallas):
     ``jax.value_and_grad`` of JAX's posterior per chain, at the bars
     test_torch_adjoint.py holds 3-D to: logpost rtol 2e-5, gradient
     relative L2 <= 1e-4. With the kernels' route on ("on": the forward
-    through ``cuda_sweep.sweep_cycle`` and the transport through
-    ``cuda_transport.transport_cycle``, each of which takes its plain
-    version for these CPU tensors) and off."""
+    through ``cuda_sweep.solve`` and the transport through
+    ``cuda_transport.solve``, each of which takes its plain version for
+    these CPU tensors) and off."""
     m = c1_models
     _, mkw, ekw = _c1_cfgs(use_pallas)
     post = build_posterior(ModelCfg(**mkw), m["data"], Grid(C1_SHAPE, (1.0, 1.0)),
