@@ -40,10 +40,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    config's full width (16 chains, 64^3 grid, 12^3 basis, 8 sources, 12
    receivers) with only the depth cut, every kernel's launch count reset
    just before and read just after: both kernels launched, the Laplace MAP
-   trace rising, every logpost finite, the acceptance in (0.05, 0.99);
+   trace rising, every logpost finite, the acceptance in (0.05, 0.99); it
+   writes a checkpoint every 30 steps (``io.checkpoint_path``);
 7. the AM path of slice 1, ``configs/c2_checkerboard3d.json`` at 16
    chains, depth cut, counts reset and read the same way: K1 launched,
-   logposts finite and rising;
+   logposts finite and rising; a checkpoint every 40 steps;
 8. K3 against its plain versions on the card (bar: bit for bit, NaN at
    the same places, and the same per-field cycle counts), on each of its
    routes (warp and block) forced, where the grid fits it: its cycle entry
@@ -128,7 +129,37 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 20. the gridbatch route on config 2's 128 fields of 64^3: the whole
    ``solve_eikonal_batched(..., impl="gridbatch")`` against
    ``impl="field"`` (bar: bit for bit; it is the same route), its K1
-   launches counted from 0 over that solve.
+   launches counted from 0 over that solve;
+21. (a) locate tables on config 3's geometry at full width (48x48x32, 16
+   stations), the fixed model the events3d truth written with
+   ``io.loaders.save_slowness`` to a ``.pt``: the first
+   ``cached_traveltime_tables`` call launches K1 and writes one
+   ``tables_*.pt``, the second returns ``torch.equal`` tables with zero K1
+   launches, and the tables equal the plain solve's bit for bit (the
+   solver config and stations of the CLI's locate posterior, so that 23
+   hits the same key);
+22. (b) the grid search at catalogue size: 4096 synthetic events against
+   the 16 tables (4.8e9 station-node misfits, in chunks), held against the
+   same function at one event per chunk on 64 of them (bar: the same
+   nodes, t0 and loglik at rtol 1e-6, t0 with an atol of 1e-7 s); seconds,
+   events per second and the hypocentre error in cells printed;
+23. (c) locate NUTS through ``mceik_tpu_torch.cli.main(["run",
+   "configs/c3_joint_events.json", "model.mode=locate", ...])`` at full
+   width (8 chains, 12 events, 16 stations), depth cut, counts reset and
+   read: K1 launched for the data's solve alone (as many launches as that
+   solve takes by itself: the tables come from 21's cache), K4 and K5 not
+   launched, logposts finite and rising, no slowness tracked and no
+   recovery correlation;
+24. (d) resume of the main path: phase 7's checkpoint resumed for 40 more
+   samples through the CLI: K1 launched, no warmup, the adapted step
+   carried over within 1e-6, the acceptance in (0.05, 0.99);
+25. (e) resume of phase 6's MALA run for 30 more samples: no ``laplace``
+   record, K1 and K4 launched, the acceptance in (0.05, 0.99);
+26. (f) config 4's SMC at full width (10,000 particles) capped at 2 stages
+   with a checkpoint, then resumed to the 3-stage cap, against phase 9's
+   uninterrupted run (bars of tests/test_dist.py: betas rtol 1e-6, log Z
+   rtol and atol 1e-5, particles rtol and atol 1e-6; bit for bit
+   printed): K3's warp route launched on the resumed ladder.
 
 The line before the last is a JSON object listing the kernels' entries
 with their launch counts (K1 and K4 on the MALA path, K3 on the SMC path,
@@ -136,7 +167,9 @@ K5 on the config-5 path, K6 on config 1's NUTS path, K1 again on the
 gridbatch solve for the TPU's gridbatch kernel; K3's and K6's cycle and
 solve entries share their kernel's count and list the cycles it counted;
 K1's and K4's config-3 NUTS counts and times, K1's config-5 counts and
-times, K5's time forced on config 2's batch, K3's config-1 times, K6's
+times, K1's launches on the locate path, on the table cache's miss and on
+the resumed AM and MALA runs, K4's on the resumed MALA run, K3's warp
+route's on the resumed SMC ladder, K5's time forced on config 2's batch, K3's config-1 times, K6's
 config-1 MALA count and config-4 times), errors, times and bounds (the
 larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 counted from each kernel's source at the shapes timed; a solve's bound
@@ -148,14 +181,17 @@ around this file; without either it fails before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -185,6 +221,11 @@ C1_ARGS = ["sampler.n_warmup=400", "sampler.n_samples=400", "io.log_every=200"]
 # sampling steps at max tree depth 6.
 C3_NUTS_ARGS = ["sampler.n_warmup=8", "sampler.n_samples=8",
                 "sampler.max_tree_depth=4", "io.log_every=4"]
+# c3_joint_events.json under model.mode=locate at full width (8 chains, 12
+# events, 16 stations); depth cut from 500 warmup and 1000 sampling steps
+# at max tree depth 6.
+C3_LOC_ARGS = ["sampler.n_warmup=20", "sampler.n_samples=20",
+               "sampler.max_tree_depth=5", "io.log_every=10"]
 C3_HMC_ARGS = ["sampler.algorithm=hmc", "sampler.n_leapfrog=8",
                "sampler.n_warmup=6", "sampler.n_samples=4", "io.log_every=4"]
 # c5_pod_nuts.json at full width but 4 of its 1024 chains (1024 x 24 fields
@@ -448,12 +489,18 @@ def main() -> int:
                                                solve_route, source_scalars,
                                                sweep_seeded_cycle_plain,
                                                sweep_solve)
-    from mceik_tpu_torch.forward.predict import interp_tables, predict_events
+    from mceik_tpu_torch.forward.locate import locate_grid_search
+    from mceik_tpu_torch.forward.predict import (interp_tables,
+                                                 predict_events,
+                                                 traveltime_tables)
+    from mceik_tpu_torch.forward.tables_cache import cached_traveltime_tables
     from mceik_tpu_torch.grid import Grid
     from mceik_tpu_torch.io.config_io import apply_overrides, load_config
+    from mceik_tpu_torch.io.loaders import load_slowness, save_slowness
     from mceik_tpu_torch.model.params import (Params, box_from_raw,
                                               slowness_from_u)
-    from mceik_tpu_torch.model.posterior import (_gaussian_loglik,
+    from mceik_tpu_torch.model.posterior import (_eik_config,
+                                                 _gaussian_loglik,
                                                  build_posterior,
                                                  value_and_grad)
     from mceik_tpu_torch.samplers.smc import run_smc_config
@@ -467,6 +514,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = _card_line()
     t_start = time.perf_counter()
+    # Checkpoints, the fixed locate model and the table cache.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    mala_ck, am_ck = os.path.join(tmp, "mala.pt"), os.path.join(tmp, "am.pt")
 
     # 1. The card: nvidia-smi's own line (name, power limit), then versions.
     print(card)
@@ -767,7 +818,9 @@ def main() -> int:
 
     # 6. The MALA path through the CLI, at full width.
     k1.launches = k4.launches = 0
-    recs, lines, wall = _run_cli(cli, ["run", MALA_CONFIG, *MALA_ARGS])
+    recs, lines, wall = _run_cli(cli, [
+        "run", MALA_CONFIG, *MALA_ARGS, f"io.checkpoint_path={mala_ck}",
+        "io.checkpoint_every=30"])
     mala_launches = {"sweep3d_cycle": k1.launches,
                      "transport3d_cycle": k4.launches}
     if min(mala_launches.values()) <= 0:
@@ -795,13 +848,16 @@ def main() -> int:
 
     # 7. The AM path of slice 1 through the CLI.
     k1.launches = k4.launches = 0
-    recs, _, wall = _run_cli(cli, ["run", AM_CONFIG, *AM_ARGS])
+    recs, _, wall = _run_cli(cli, [
+        "run", AM_CONFIG, *AM_ARGS, f"io.checkpoint_path={am_ck}",
+        "io.checkpoint_every=40"])
     am_launches = k1.launches
     if am_launches <= 0:
         raise RuntimeError("AM path: the sweep kernel was never launched")
     am_cfg = apply_overrides(load_config(AM_CONFIG), AM_ARGS)
     init, samp, steps, rate_all, rate_last = _check_run(
         recs, "AM path", am_cfg.sampler.n_warmup)
+    am_step = samp[-1]["step_size"]
     if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
         raise RuntimeError(f"AM path: logpost did not rise "
                            f"({init['logpost_mean']} -> "
@@ -1574,6 +1630,249 @@ def main() -> int:
     if not torch.equal(T_gb, T_fd):
         raise RuntimeError(f"gridbatch solve disagrees with field ({err_gb})")
     errs["gridbatch"].append(err_gb)
+    # 21-26: locate mode, the table cache, the grid search, and resume.
+    t_new = time.perf_counter()
+    model_pt = os.path.join(tmp, "c3_model.pt")
+    cache_dir = os.path.join(tmp, "tables")
+    loc_args = ["model.mode=locate", f"model.fixed_slowness_path={model_pt}",
+                f"model.table_cache_dir={cache_dir}"]
+
+    # 21 (a). Locate tables and the cache on config 3's geometry: the fixed
+    # model is the events3d truth, written with save_slowness; the solver
+    # config and the stations are those the CLI's locate posterior builds,
+    # so that phase 23 hits the same key.
+    c3_loc = apply_overrides(c3, loc_args)
+    data_l, truth_l = make_dataset(g3, c3_loc.data, c3_loc.model, device=dev)
+    save_slowness(model_pt, truth_l["slowness"], g3)
+    s_loc = load_slowness(model_pt, g3, device=dev)
+    if not torch.equal(s_loc, truth_l["slowness"]):
+        raise RuntimeError("locate model: the .pt round trip changed it")
+    econf_l = _eik_config(c3_loc.eikonal)
+    sta_l = data_l.sta_xyz
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tabs = cached_traveltime_tables(s_loc, sta_l, g3, econf_l, cache_dir)
+    torch.cuda.synchronize()
+    sec_miss = time.perf_counter() - t0
+    miss_launches = k1.launches
+    files = sorted(os.listdir(cache_dir))
+    if miss_launches <= 0 or len(files) != 1 \
+            or not files[0].startswith("tables_"):
+        raise RuntimeError(f"table cache miss: K1 {miss_launches} launches, "
+                           f"files {files}")
+    k1.launches = 0
+    t0 = time.perf_counter()
+    tabs_hit = cached_traveltime_tables(s_loc, sta_l, g3, econf_l, cache_dir)
+    torch.cuda.synchronize()
+    sec_hit = time.perf_counter() - t0
+    if k1.launches != 0 or not torch.equal(tabs_hit, tabs) \
+            or os.listdir(cache_dir) != files:
+        raise RuntimeError(f"table cache hit: {k1.launches} K1 launches, "
+                           f"equal {torch.equal(tabs_hit, tabs)}")
+    t0 = time.perf_counter()
+    tabs_p = traveltime_tables(s_loc, sta_l, g3,
+                               dataclasses.replace(econf_l, use_pallas="off"))
+    torch.cuda.synchronize()
+    sec_plain = time.perf_counter() - t0
+    err_tab = float((tabs - tabs_p).abs().max())
+    if not (bool(torch.isfinite(tabs).all()) and torch.equal(tabs, tabs_p)):
+        raise RuntimeError(f"locate tables: K1 disagrees with plain "
+                           f"({err_tab})")
+    errs["sweep3d_cycle"].append(err_tab)
+    print(f"locate tables (c3 geometry {g3.shape}, {sta_l.shape[0]} "
+          f"stations, fixed model = events3d truth at amplitude "
+          f"{c3.data.checker_amplitude}): cache miss {sec_miss:.3f} s with "
+          f"{miss_launches} K1 launches wrote {files[0]}; hit "
+          f"{sec_hit:.3f} s with 0 launches, torch.equal; max|K1-plain| = "
+          f"{err_tab:.3e} (plain solve {sec_plain:.3f} s)")
+
+    # 22 (b). The grid search at catalogue size: 4096 synthetic events
+    # (uniform in the box's interior, t0 ~ 0.2 N(0, 1), noise at the
+    # config's) against the 16 tables, in chunks; the first 64 again one
+    # event per chunk.
+    n_cat = 4096
+    lo = torch.tensor(g3.origin, device=dev)
+    ext = torch.tensor(g3.extent, device=dev)
+    hypo_cat = lo + ext * (0.1 + 0.8 * torch.rand((n_cat, 3), generator=gen,
+                                                  device=dev))
+    t0_cat = 0.2 * torch.randn(n_cat, generator=gen, device=dev)
+    t_cat = predict_events(tabs, hypo_cat, t0_cat, g3) \
+        + c3.data.noise * torch.randn((n_cat, sta_l.shape[0]), generator=gen,
+                                      device=dev)
+    sig = c3.model.sigma
+    locate_grid_search(tabs, t_cat[:64], g3, sig)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = locate_grid_search(tabs, t_cat, g3, sig)
+    torch.cuda.synchronize()
+    sec_gs = time.perf_counter() - t0
+    one = locate_grid_search(tabs, t_cat[:64], g3, sig, chunk=1)
+    if not torch.equal(found["node"][:64], one["node"]):
+        raise RuntimeError("grid search: chunk of 1 picks other nodes")
+    d_t0 = float((found["t0"][:64] - one["t0"]).abs().max())
+    r_ll = float(((found["loglik"][:64] - one["loglik"]).abs()
+                  / one["loglik"].abs().clamp(min=1e-30)).max())
+    t0_ok = bool(((found["t0"][:64] - one["t0"]).abs()
+                  <= 1e-6 * one["t0"].abs() + 1e-7).all())
+    if not (t0_ok and r_ll <= 1e-6):
+        raise RuntimeError(f"grid search: chunk of 1 disagrees (t0 {d_t0}, "
+                           f"loglik rel {r_ll})")
+    h = torch.tensor(g3.spacing, device=dev)
+    cells = ((found["hypo"] - hypo_cat) / h).norm(dim=-1)
+    n_mis = n_cat * sta_l.shape[0] * math.prod(g3.shape)
+    print(f"grid search: {n_cat} events x {sta_l.shape[0]} stations x "
+          f"{math.prod(g3.shape)} nodes = {n_mis:.4e} misfits in "
+          f"{sec_gs:.4f} s, {n_cat / sec_gs:.1f} events/s; hypocentre error "
+          f"median {float(cells.median()):.3f} cells, max "
+          f"{float(cells.max()):.3f}; chunk of 1 on 64 events: same nodes, "
+          f"max|dt0| {d_t0:.3e} s, max rel dloglik {r_ll:.3e}")
+
+    # 23 (c). Locate NUTS through the CLI at full width: the tables come
+    # from the cache of phase 21, so K1 runs for the data's solve alone.
+    c3_nuts_l = apply_overrides(c3_loc, C3_LOC_ARGS)
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    make_dataset(g3, c3_nuts_l.data, c3_nuts_l.model, device=dev)
+    data_launches = k1.launches
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    api.run = keep_summary
+    try:
+        recs, _, wall = _run_cli(cli, ["run", C3_CONFIG, *loc_args,
+                                       *C3_LOC_ARGS])
+    finally:
+        api.run = api_run
+    loc_launches = k1.launches
+    if loc_launches <= 0 or loc_launches != data_launches \
+            or k4.launches or k5.launches:
+        raise RuntimeError(f"locate path: K1 {loc_launches} launches (the "
+                           f"data's solve alone takes {data_launches}), K4 "
+                           f"{k4.launches}, K5 {k5.launches}")
+    if os.listdir(cache_dir) != files:
+        raise RuntimeError("locate path: the table cache missed")
+    init, samp, steps, rate_all, _ = _check_run(
+        recs, "locate path", c3_nuts_l.sampler.n_warmup, n3)
+    if not samp[-1]["logpost_mean"] > init["logpost_mean"]:
+        raise RuntimeError(f"locate path: logpost did not rise "
+                           f"({init['logpost_mean']} -> "
+                           f"{samp[-1]['logpost_mean']})")
+    loc = summaries[-1]
+    if "slowness" in loc.post_mean or loc.recovery_corr is not None \
+            or loc.post_mean["params"].u is not None:
+        raise RuntimeError("locate path: a slowness was tracked")
+    h_err = ((box_from_raw(torch.as_tensor(loc.post_mean["params"].hypo_raw,
+                                           device=dev), g3)
+              - truth_l["hypo"]) / h).norm(dim=-1)
+    print(f"locate path (c3 at full width, model.mode=locate, 8 chains, 12 "
+          f"events, 16 stations; depth cut to {C3_LOC_ARGS}): {loc_launches} "
+          f"K1 launches (the data's solve alone: {data_launches}), K4 "
+          f"{k4.launches}, K5 {k5.launches}; logpost_mean "
+          f"{init['logpost_mean']} -> {samp[-1]['logpost_mean']}; mean tree "
+          f"depth {sum(r['tree_depth'] for r in samp) / len(samp):.3f}; "
+          f"posterior-mean hypocentre error median "
+          f"{float(h_err.median()):.3f} cells, max {float(h_err.max()):.3f}; "
+          f"{rate_all:.2f} chain-steps/s over {steps} steps (cli wall "
+          f"{wall:.1f} s); no slowness tracked, recovery_corr None")
+
+    # 24 (d). Resume of the main path: phase 7's AM run wrote its
+    # checkpoint every 40 steps; resume it for 40 more samples.
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    api.run = keep_summary
+    try:
+        recs, lines, wall = _run_cli(cli, ["run", AM_CONFIG, *AM_ARGS,
+                                           "sampler.n_samples=40",
+                                           f"io.resume={am_ck}"])
+    finally:
+        api.run = api_run
+    am_res_launches = k1.launches
+    res_am = summaries[-1]
+    step_res = api._step_size_of(res_am.result.hyper)
+    no_warm = any(x.startswith(f"[mceik-tpu-torch] resumed from {am_ck}")
+                  for x in lines) and any(
+        x.startswith("[mceik-tpu-torch] am chains=16 warmup=0 ")
+        for x in lines)
+    init, samp, _, rate_all, _ = _check_run(recs, "AM resume", 0)
+    if am_res_launches <= 0 or not no_warm \
+            or not abs(step_res - am_step) <= 1e-6 \
+            or not 0.05 < res_am.accept_rate < 0.99:
+        raise RuntimeError(f"AM resume: K1 {am_res_launches}, no warmup "
+                           f"{no_warm}, step {step_res} vs {am_step}, "
+                           f"acceptance {res_am.accept_rate}")
+    print(f"AM resume (c2, 16 chains, 40 more samples): {am_res_launches} "
+          f"K1 launches, no warmup; step {step_res} (checkpointed run "
+          f"{am_step}); acceptance {res_am.accept_rate:.4f}; logpost_mean "
+          f"{init['logpost_mean']} -> {samp[-1]['logpost_mean']}; "
+          f"{rate_all:.2f} chain-steps/s (cli wall {wall:.1f} s)")
+
+    # 25 (e). Resume of c2 MALA from phase 6's checkpoint: no Laplace setup.
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    api.run = keep_summary
+    try:
+        recs, _, wall = _run_cli(cli, ["run", MALA_CONFIG, *MALA_ARGS,
+                                       "sampler.n_samples=30",
+                                       f"io.resume={mala_ck}"])
+    finally:
+        api.run = api_run
+    res_mala = summaries[-1]
+    mala_res_launches = {"sweep3d_cycle": k1.launches,
+                         "transport3d_cycle": k4.launches}
+    if [r for r in recs if r["phase"] == "laplace"] \
+            or min(mala_res_launches.values()) <= 0 \
+            or not 0.05 < res_mala.accept_rate < 0.99:
+        raise RuntimeError(f"MALA resume: launches {mala_res_launches}, "
+                           f"acceptance {res_mala.accept_rate}, records "
+                           f"{[r['phase'] for r in recs]}")
+    print(f"MALA resume (c2, 16 chains, 30 more samples): no Laplace "
+          f"record; launches {mala_res_launches}; acceptance "
+          f"{res_mala.accept_rate:.4f} (cli wall {wall:.1f} s)")
+
+    # 26 (f). SMC resume at full width: a 2-stage ladder with a checkpoint,
+    # resumed to the 3-stage cap, against phase 9's uninterrupted run.
+    smc_ck = os.path.join(tmp, "smc.pt")
+    t0 = time.perf_counter()
+    part = run_smc_config(
+        dataclasses.replace(c4, io=dataclasses.replace(
+            c4.io, checkpoint_path=smc_ck)),
+        device=dev, verbose=True, max_stages=SMC_STAGES - 1)
+    for k in (k1, k3, k4, k5, k6):
+        k.launches = 0
+    k3.block_launches = 0
+    rest = run_smc_config(
+        dataclasses.replace(c4, io=dataclasses.replace(c4.io,
+                                                       resume=smc_ck)),
+        device=dev, verbose=True, max_stages=SMC_STAGES)
+    smc_res_launches = k3.launches
+    smc_res_warp = k3.launches - k3.block_launches
+    smc_res_wall = time.perf_counter() - t0
+    d_beta = max(abs(a - b) / abs(b) if b else abs(a)
+                 for a, b in zip(rest.betas, res.betas))
+    d_logz = abs(rest.log_evidence - res.log_evidence)
+    d_part = float((rest.state.params.u - res.state.params.u).abs().max())
+    ok = (part.n_stages == SMC_STAGES - 1
+          and rest.n_stages == res.n_stages
+          and len(rest.betas) == len(res.betas) and d_beta <= 1e-6
+          and d_logz <= 1e-5 + 1e-5 * abs(res.log_evidence)
+          and bool(torch.isclose(rest.state.params.u, res.state.params.u,
+                                 rtol=1e-6, atol=1e-6).all())
+          and smc_res_warp > 0)
+    bitwise = (rest.betas == res.betas and rest.log_evidence == res.log_evidence
+               and torch.equal(rest.state.params.u, res.state.params.u))
+    print(f"SMC resume (c4, {n_part} particles): {part.n_stages} stages with "
+          f"a checkpoint, resumed to {rest.n_stages}: {smc_res_launches} K3 "
+          f"launches on the resumed ladder ({smc_res_warp} on the warp "
+          f"route); against phase 9's run max rel "
+          f"dbeta {d_beta:.3e}, |dlogZ| {d_logz:.3e}, max|dparticles| "
+          f"{d_part:.3e}, bit for bit {bitwise} (wall {smc_res_wall:.1f} s, "
+          f"both runs)")
+    if not ok:
+        raise RuntimeError("SMC resume: disagrees with the uninterrupted "
+                           "ladder")
+    print(f"phases 21-26 (locate, grid search, resume) wall "
+          f"{time.perf_counter() - t_new:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
@@ -1616,6 +1915,10 @@ def main() -> int:
         "c5_ms": ms_k1_c5,
         "c5_plain_ms": ms_k1_c5_plain,
         "c5_bound_ms": b_k1_c5,
+        "locate_launches": loc_launches,
+        "locate_cache_miss_launches": miss_launches,
+        "am_resume_launches": am_res_launches,
+        "mala_resume_launches": mala_res_launches["sweep3d_cycle"],
     }, {
         "name": "transport3d_cycle",
         "route": "cuda",
@@ -1629,6 +1932,7 @@ def main() -> int:
         "bound_by": by_k4,
         "library_ms": None,
         "c3_launches": nuts_launches["transport3d_cycle"],
+        "mala_resume_launches": mala_res_launches["transport3d_cycle"],
         "c3_ms": ms_k4_c3,
         "c3_plain_ms": ms_k4_c3_plain,
         "c3_bound_ms": b_k4_c3,
@@ -1661,6 +1965,7 @@ def main() -> int:
                     "while_loop of :907",
         "launches": smc_launches - smc_block,
         "field_cycles": smc_cycles,
+        "smc_resume_launches": smc_res_warp,
         "max_abs_err": max(errs["sweep2d"]),
         "ms": k3_c4["warp"][1],
         "plain_ms": ms_k3s_plain,

@@ -1,18 +1,26 @@
 """Top-level API: ``run(config, device) -> RunSummary``.
 
-Counterpart of ``mceik_tpu/api.py`` for the tomo and joint posteriors under
-fixed, hierarchical or spike-slab noise: config -> grid -> synthetic data
--> posterior -> sampler (rwm, am, am_full, pcn, mala, hmc or nuts; MALA
-with an optional Laplace preconditioner, and hmc, nuts and pcn optionally
-in the whitened coordinates of a Laplace fit), sampled in segments of
-``io.log_every`` steps with one JSONL metrics record per segment (plus one
-for the Laplace setup and one for the initial states), then pooled moments
-and diagnostics. Welford moments carry across segments, so segmentation
-never changes the statistics. Under spike-slab noise every step is the
-continuous kernel followed by the exact Gibbs scan over the station
-indicators, and the warmup anneals the scan's odds (``spike_slab_warmup``).
-SMC has its own entry point, ``samplers.smc.run_smc_config``, which the CLI
-calls.
+Counterpart of ``mceik_tpu/api.py`` for the tomo, joint and locate
+posteriors under fixed, hierarchical or spike-slab noise: config -> grid ->
+synthetic or loaded data -> posterior -> sampler (rwm, am, am_full, pcn,
+mala, hmc or nuts; MALA with an optional Laplace preconditioner, and hmc,
+nuts and pcn optionally in the whitened coordinates of a Laplace fit),
+sampled in segments of ``io.log_every`` steps with one JSONL metrics
+record per segment (plus one for the Laplace setup and one for the initial
+states), then pooled moments and diagnostics. Welford moments carry across
+segments, so segmentation never changes the statistics. Under spike-slab
+noise every step is the continuous kernel followed by the exact Gibbs scan
+over the station indicators, and the warmup anneals the scan's odds
+(``spike_slab_warmup``).
+
+With ``io.checkpoint_path`` the whole sampler state (every chain's state,
+the adaptation state and the generator's state) is written atomically
+every ``io.checkpoint_every`` steps (which also bounds a segment) and at
+the end; ``io.resume`` restores it, skips the warmup (and MALA's Laplace
+setup, whose pinned covariance is in the restored hyper) and continues the
+interrupted run's random stream, where the reference re-derives its keys
+from the seed. SMC has its own entry point,
+``samplers.smc.run_smc_config``, which the CLI calls.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from mceik_tpu_torch.config import RunConfig
 from mceik_tpu_torch.datasets import make_dataset
 from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
+from mceik_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mceik_tpu_torch.io.metrics import MetricsLogger
 from mceik_tpu_torch.model.params import Params, box_logjac
 from mceik_tpu_torch.model.posterior import build_posterior, noise_gibbs_draws
@@ -85,9 +94,6 @@ def check_run_options(config: RunConfig) -> None:
     answers; more than one process or device is distribution, not ported
     yet."""
     io, dist = config.io, config.dist
-    if io.checkpoint_path or io.resume or io.checkpoint_every:
-        raise NotImplementedError("checkpointing and resume are not ported "
-                                  "yet")
     if io.profile_dir:
         raise NotImplementedError("io.profile_dir: profiling is not ported")
     world = os.environ.get("WORLD_SIZE", "") or "1"
@@ -193,7 +199,8 @@ def _gradient_kernel(scfg, logpost_fn):
     return nuts.make_kernel(logpost_fn, scfg.max_tree_depth)
 
 
-def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
+def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger,
+                      resuming: bool = False):
     """Returns ``(kernel, adapter, hyper, finalize_fn, states, params_of)``,
     with the chains initialised (RWM has no finalize). ``params_of`` maps
     whitened chain states to model params, and is None when the states are
@@ -201,7 +208,14 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
     ``precondition="laplace"`` the MAP and Gauss-Newton covariance are
     computed once here and pinned, and the chains start at the MAP plus
     0.3x Laplace jitter. hmc, nuts and pcn with ``precondition="whitened"``
-    run in the Laplace fit's whitened coordinates (``model/whitened.py``)."""
+    run in the Laplace fit's whitened coordinates (``model/whitened.py``).
+
+    ``resuming``: the states and hyper will be restored from a checkpoint,
+    so MALA skips its Laplace setup (the pinned covariance is in the
+    restored hyper) and the states and hyper here only give the structure.
+    The whitened samplers cannot skip theirs: the map from whitened to
+    model coordinates lives in the kernel, not in the checkpointed state,
+    and the setup rebuilds it from the same seeded ascent."""
     scales = posterior.prior_scales
     lp = posterior.logpost
     algo = scfg.algorithm
@@ -228,7 +242,9 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger):
         hyper = mala.init_hyper(scales, scfg.step_size)
         init_fn = posterior.init_params
         adapt_cov = True
-        if scfg.precondition == "laplace":
+        if scfg.precondition == "laplace" and resuming:
+            adapt_cov = False
+        elif scfg.precondition == "laplace":
             p_map, cov = _laplace(posterior, scfg, logger)
             hyper = mala.prime_covariance(hyper, cov)
             adapt_cov = False
@@ -353,40 +369,91 @@ def with_noise_gibbs(posterior, kernel, adapter, states, hyper, finalize_fn,
     return _wrap_noise_gibbs(kernel, gibbs), states, hyper, 0
 
 
+def _restore(path, states, hyper, gen: torch.Generator, scfg, verbose):
+    """``(states, hyper)`` from the checkpoint at ``path``, with ``gen`` set
+    to the checkpointed state; a checkpoint written under another
+    precondition is refused (MALA would freeze a covariance that is not
+    the Laplace one, and the whitened samplers' coordinates would not
+    match)."""
+    ck, meta = load_checkpoint(path, {"states": states, "hyper": hyper,
+                                      "rng": gen.get_state()})
+    ck_pre = meta.get("precondition")
+    if (scfg.algorithm in ("mala", "hmc", "nuts", "pcn")
+            and ck_pre is not None and ck_pre != scfg.precondition):
+        raise ValueError(
+            f"checkpoint {path} was written with precondition={ck_pre!r} "
+            f"but this run requests {scfg.precondition!r} — refusing to "
+            "resume (the preconditioner / chain coordinate system would not "
+            "match the requested mode)")
+    gen.set_state(ck["rng"])
+    if verbose:
+        print(f"[mceik-tpu-torch] resumed from {path} (meta={meta})")
+    return ck["states"], ck["hyper"]
+
+
 def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     """Sample the config's posterior on ``device`` ("cuda" or "cpu")."""
     _check_supported(config)
     device = prepare_device(device)
     grid = config.grid.build()
     data, truth = make_dataset(grid, config.data, config.model, device=device)
-    scfg = config.sampler
+    scfg, io = config.sampler, config.io
     posterior = build_posterior(config.model, data, grid, config.eikonal,
                                 differentiable=_uses_gradients(scfg))
+
+    # Resume only from a checkpoint that exists: a path not written yet
+    # (checkpoint_path == resume in a restart loop) starts fresh, with the
+    # whole setup.
+    resuming = bool(io.resume) and os.path.exists(io.resume)
+    if io.resume and not resuming and verbose:
+        print(f"[mceik-tpu-torch] resume path {io.resume} does not exist "
+              "— starting fresh")
 
     logger = MetricsLogger() if verbose else None
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
     kernel, adapter, hyper, finalize_fn, states, params_of = \
-        _dispatch_sampler(scfg, posterior, gen, logger)
+        _dispatch_sampler(scfg, posterior, gen, logger, resuming)
+    n_warmup = scfg.n_warmup
+    if resuming:
+        states, hyper = _restore(io.resume, states, hyper, gen, scfg,
+                                 verbose)
+        n_warmup = 0        # the restored states are past their warmup
     collect_fn = params_of if params_of is not None else (lambda p: p)
     if logger is not None:
         logger.log({"phase": "init", "step": 0, "device": str(device),
                     **_logpost_stats(states.logpost)})
+    n_warm_in = n_warmup
     kernel, states, hyper, n_warmup = with_noise_gibbs(
         posterior, kernel, adapter, states, hyper, finalize_fn, gen,
-        scfg.n_warmup)
-    if logger is not None and n_warmup < scfg.n_warmup:
+        n_warm_in)
+    if logger is not None and n_warmup < n_warm_in:
         # The annealed spike-slab warmup ran apart from the segments.
         logger.log({"phase": "warmup", "step": 0,
                     "noise_inclusion": round(float(
                         states.params.noise_z.mean()), 4),
                     **_logpost_stats(states.logpost)})
 
+    # Locate mode samples no slowness: there is none to track.
+    track_slowness = config.model.mode in ("tomo", "joint")
+
     def track_fn(params):
         # Whitened chains carry u; moments always see model params.
         p = collect_fn(params)
-        return {"params": p, "slowness": posterior.slowness_of(p)}
+        out = {"params": p}
+        if track_slowness:
+            out["slowness"] = posterior.slowness_of(p)
+        return out
 
-    seg = config.io.log_every if config.io.log_every > 0 else scfg.n_samples
+    def checkpoint(step, **extra):
+        save_checkpoint(io.checkpoint_path,
+                        {"states": states, "hyper": hyper,
+                         "rng": gen.get_state()},
+                        meta={"step": step, "algorithm": scfg.algorithm,
+                              "precondition": scfg.precondition, **extra})
+
+    seg = io.log_every if io.log_every > 0 else scfg.n_samples
+    if io.checkpoint_every > 0:
+        seg = min(seg, io.checkpoint_every)
     seg = max(1, min(seg, scfg.n_samples))
     n_seg = max(1, scfg.n_samples // seg)
     n_steps_actual = n_seg * seg
@@ -428,7 +495,12 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
                 "chain_steps_per_s": round(
                     step_done * scfg.n_chains / (time.perf_counter() - t0), 2),
             })
+        if (io.checkpoint_path and io.checkpoint_every > 0
+                and step_done % io.checkpoint_every == 0):
+            checkpoint(step_done)
     wall = time.perf_counter() - t0
+    if io.checkpoint_path:
+        checkpoint(step_done, final=True)
 
     # --- host-side summary ---------------------------------------------
     kept = [r for r in seg_results if r.samples is not None]
@@ -459,7 +531,7 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
         ess_min, ess_med = float(np.min(pe)), float(np.median(pe))
 
     recovery = None
-    if "slowness" in truth:
+    if track_slowness and "slowness" in truth:
         s_mean = post_mean["slowness"]
         s_true = _to_numpy(truth["slowness"])
         a = s_mean - s_mean.mean()

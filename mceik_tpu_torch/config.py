@@ -43,7 +43,7 @@ class ModelCfg:
 
     mode: "tomo" (slowness only, known sources), "joint" (slowness +
     hypocenters + origin times) or "locate" (hypocenters over a fixed
-    slowness). The port runs "tomo" and "joint" under every noise model.
+    slowness). The port runs all three under every noise model.
     """
 
     mode: str = "tomo"

@@ -3,8 +3,10 @@
 and its volume-acquisition variant) and the joint events problems
 (config 3).
 
-Counterpart of ``mceik_tpu/datasets/synthetic.py`` (the file and csv
-datasets are not ported yet). Geometries and event truths come from numpy's
+Counterpart of ``mceik_tpu/datasets/synthetic.py``, whose ``make_dataset``
+also reads observed data: the "file" dataset (HDF5 or ``.pt``, by
+extension) and the "csv" station and arrival tables (``io/loaders.py``),
+on the requested device. Geometries and event truths come from numpy's
 ``default_rng`` with the reference's seeds, so they equal the JAX
 package's. The noise comes from a CPU ``torch.Generator`` seeded as the
 reference seeds its key (``data.seed``, ``data.seed + 2`` for events), so a
@@ -233,8 +235,24 @@ def make_dataset(grid: Grid, dcfg: DataCfg, mcfg: ModelCfg,
         data, s_true, hypo, t0 = events[dcfg.dataset](grid, dcfg, mcfg, eik,
                                                       device)
         return data, {"slowness": s_true, "hypo": hypo, "t0": t0}
-    if dcfg.dataset in ("file", "csv"):
-        raise NotImplementedError(
-            f"dataset {dcfg.dataset!r}: file and csv datasets are not "
-            "ported yet")
+    if dcfg.dataset == "file":
+        from mceik_tpu_torch.io.loaders import load_dataset
+        if not dcfg.path:
+            raise ValueError('dataset="file" requires data.path')
+        data, truth = load_dataset(dcfg.path, device=device)
+        if ("slowness" in truth
+                and tuple(truth["slowness"].shape) != tuple(grid.shape)):
+            raise ValueError(
+                f"{dcfg.path}: stored truth slowness "
+                f"{tuple(truth['slowness'].shape)} != grid "
+                f"{tuple(grid.shape)}")
+        return data, truth
+    if dcfg.dataset == "csv":
+        from mceik_tpu_torch.io.loaders import load_events_csv
+        if not (dcfg.stations_path and dcfg.arrivals_path):
+            raise ValueError(
+                'dataset="csv" requires data.stations_path and '
+                'data.arrivals_path')
+        return load_events_csv(dcfg.stations_path, dcfg.arrivals_path,
+                               device=device), {}
     raise ValueError(f"unknown dataset {dcfg.dataset!r}")

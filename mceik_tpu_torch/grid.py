@@ -64,6 +64,13 @@ class Grid:
         h = torch.tensor(self.spacing, dtype=xyz.dtype, device=xyz.device)
         return (xyz - o) / h
 
+    def to_physical_coords(self, idx: torch.Tensor) -> torch.Tensor:
+        """Fractional index coords ``(..., ndim)`` -> physical coords."""
+        idx = torch.as_tensor(idx)
+        o = torch.tensor(self.origin, dtype=idx.dtype, device=idx.device)
+        h = torch.tensor(self.spacing, dtype=idx.dtype, device=idx.device)
+        return o + idx * h
+
     def node_coords(self) -> np.ndarray:
         """Dense physical coordinates of every node, shape ``shape + (ndim,)``
         (numpy, host-side: dataset generators and tests)."""

@@ -22,6 +22,7 @@ import torch
 
 from mceik_tpu_torch.model.posterior import value_and_grad
 from mceik_tpu_torch.samplers.am_full import _ravel, _unravel_fn
+from mceik_tpu_torch.utils import tree_leaves
 
 
 def _flat_value_and_grad(post, example):
@@ -47,7 +48,7 @@ def map_estimate(post, n_steps: int = 150):
     loop of ``n_steps`` steps (the reference runs 25-step scans, so it
     rounds ``n_steps`` up to a multiple of 25). Frozen coordinates take
     zero steps. Returns ``(params_map, logpost trace)``."""
-    dev = post.prior_scales.u.device
+    dev = tree_leaves(post.prior_scales)[0].device
     init_params = post.init_params(
         torch.Generator(device=dev).manual_seed(0), 1, jitter=0.0)
     x = _ravel(init_params, batch_dims=1)

@@ -1,9 +1,12 @@
 """Posterior builder: prior + Gaussian traveltime likelihood.
 
-Counterpart of ``mceik_tpu/model/posterior.py`` in two modes: ``tomo``
-(slowness only, known sources; configs 1, 2 and 4) and ``joint``
-(slowness, hypocentres and origin times; configs 3 and 5), the latter with
-sampled ``t0`` or with ``t0`` marginalized exactly. Three noise models:
+Counterpart of ``mceik_tpu/model/posterior.py`` in three modes: ``tomo``
+(slowness only, known sources; configs 1, 2 and 4), ``joint`` (slowness,
+hypocentres and origin times; configs 3 and 5) and ``locate`` (hypocentres
+and origin times over a fixed slowness, whose station tables are solved
+once when the posterior is built, so a logpost is interpolation and
+reduction alone and there is no ``u``), the last two with sampled ``t0``
+or with ``t0`` marginalized exactly. Three noise models:
 ``fixed`` (``cfg.sigma``), ``hierarchical`` (``sigma * exp(log_sigma)``,
 one ``log_sigma`` or one per station, under an ``N(0, sigma_hyper^2)``
 hyperprior) and ``spike_slab`` (per station, an indicator ``z`` switches
@@ -16,10 +19,11 @@ axis (``u``: ``(C,) + inv_shape``, ``hypo_raw``: ``(C, n_ev, D)``, ``t0``:
 ``(C, n_sta)``; stations are the receivers in tomo mode) and returns one
 value per chain; one ``logpost`` call makes one batched eikonal solve of
 ``C x n_src`` (tomo) or ``C x n_sta`` (joint, tables solved from the
-stations) fields. Built with ``differentiable=True`` the solve is the
-implicit-adjoint one, and :func:`value_and_grad` gives every chain's
-gradient from one backward pass: one batched transport solve of the same
-fields. Hypocentre gradients come from the table interpolation alone.
+stations) fields, and none in locate mode. Built with
+``differentiable=True`` the solve is the implicit-adjoint one, and
+:func:`value_and_grad` gives every chain's gradient from one backward
+pass: one batched transport solve of the same fields. Hypocentre gradients
+come from the table interpolation alone.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ from mceik_tpu_torch.config import EikonalCfg, ModelCfg
 from mceik_tpu_torch.eikonal.adjoint import solve_eikonal_diff_batched
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import EikonalConfig
-from mceik_tpu_torch.forward.predict import (predict_events, predict_tomo,
-                                             traveltime_tables)
+from mceik_tpu_torch.forward.predict import (interp_tables, predict_events,
+                                             predict_tomo, traveltime_tables)
+from mceik_tpu_torch.forward.tables_cache import cached_traveltime_tables
 from mceik_tpu_torch.grid import Grid, sample_linear
+from mceik_tpu_torch.io.loaders import load_slowness
 from mceik_tpu_torch.model.data import EventData, TomoData
 from mceik_tpu_torch.model.params import (Params, box_from_raw, box_logjac,
                                           slowness_from_u)
@@ -57,7 +63,7 @@ class PosteriorModel:
 
     logpost: Callable[[Params], torch.Tensor]          # -> (C,)
     init_params: Callable[..., Params]                  # (gen, n_chains, jitter)
-    slowness_of: Callable[[Params], torch.Tensor]       # -> (C,) + grid
+    slowness_of: Callable[[Params], Optional[torch.Tensor]]  # (C,) + grid, or None (locate)
     predict: Callable[[Params], torch.Tensor]           # -> (C, n_src, n_rec) or (C, n_ev, n_sta)
     grid: Grid
     cfg: ModelCfg
@@ -106,13 +112,20 @@ def _marginalized_t0_loglik(r, sigma, mask):
 
 def build_posterior(cfg: ModelCfg, data, grid: Grid,
                     eik_cfg: EikonalCfg = EikonalCfg(),
-                    differentiable: bool = False) -> PosteriorModel:
-    """Construct the tomo or joint posterior over ``data`` (whose tensors
-    set the device). ``differentiable=True`` routes the solves through the
-    implicit adjoint, for the gradient samplers and the Laplace fit."""
-    if cfg.mode not in ("tomo", "joint"):
-        raise NotImplementedError(
-            f"model mode {cfg.mode!r}: locate mode is not ported yet")
+                    differentiable: bool = False,
+                    fixed_slowness=None) -> PosteriorModel:
+    """Construct the tomo, joint or locate posterior over ``data`` (whose
+    tensors set the device). ``differentiable=True`` routes the solves
+    through the implicit adjoint, for the gradient samplers and the Laplace
+    fit.
+
+    ``fixed_slowness`` (locate mode): the given velocity model the station
+    tables are solved over, an array or tensor of the grid's shape; None
+    takes ``cfg.fixed_slowness_path`` (HDF5 or ``.pt``, by extension), else
+    the homogeneous background. The tables come through the on-disk cache
+    when ``cfg.table_cache_dir`` is set."""
+    if cfg.mode not in ("tomo", "joint", "locate"):
+        raise ValueError(f"unknown model mode {cfg.mode!r}")
     noise_model = cfg.resolved_noise_model()
     if noise_model not in ("fixed", "hierarchical", "spike_slab"):
         raise ValueError(f"unknown noise_model {noise_model!r}")
@@ -128,8 +141,10 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=device)
     inv_shape = tuple(cfg.inv_shape)
     joint = cfg.mode == "joint"
-    sample_t0 = joint and not cfg.marginalize_t0
-    if joint:
+    locate = cfg.mode == "locate"
+    events = joint or locate           # hypocentres and origin times
+    sample_t0 = events and not cfg.marginalize_t0
+    if events:
         n_ev, n_sta = data.t_obs.shape
     else:
         n_sta = data.t_obs.shape[1]          # the receivers
@@ -142,6 +157,24 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
         ls_shape = (n_sta,)
     elif hier:
         ls_shape = ()
+
+    fixed_tables = None
+    if locate:
+        if fixed_slowness is not None:
+            s_fixed = torch.as_tensor(fixed_slowness, dtype=torch.float32,
+                                      device=device)
+        elif cfg.fixed_slowness_path:
+            s_fixed = load_slowness(cfg.fixed_slowness_path, grid,
+                                    device=device)
+        else:
+            s_fixed = bg * torch.ones(grid.shape, dtype=torch.float32,
+                                      device=device)
+        if tuple(s_fixed.shape) != tuple(grid.shape):
+            raise ValueError(f"fixed slowness shape {tuple(s_fixed.shape)} "
+                             f"!= grid {tuple(grid.shape)}")
+        fixed_tables = cached_traveltime_tables(
+            s_fixed, data.sta_xyz, grid, econf,
+            cache_dir=cfg.table_cache_dir or None)
 
     def randn(gen, shape):
         return torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -163,7 +196,9 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
         return sigma
 
     def log_prior(params: Params) -> torch.Tensor:
-        lp = -0.5 * _per_chain_sum((params.u / cfg.prior_sigma_u) ** 2)
+        lp = 0.0
+        if params.u is not None:
+            lp = -0.5 * _per_chain_sum((params.u / cfg.prior_sigma_u) ** 2)
         if params.hypo_raw is not None:
             lp = lp + box_logjac(params.hypo_raw)
         if params.t0 is not None:
@@ -180,20 +215,27 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
                 ((params.log_sigma - cfg.noise_slab_mu) / cfg.sigma_hyper) ** 2)
         return lp
 
-    def slowness_of(params: Params) -> torch.Tensor:
+    def slowness_of(params: Params) -> Optional[torch.Tensor]:
+        if locate:
+            return None
         return slowness_from_u(params.u, grid, bg)
 
     def predict(params: Params) -> torch.Tensor:
-        if not joint:
+        if not events:
             return predict_tomo(slowness_of(params), data.src_xyz,
                                 data.rec_xyz, grid, econf,
                                 differentiable=differentiable)
-        tables = traveltime_tables(slowness_of(params), data.sta_xyz, grid,
-                                   econf, differentiable=differentiable)
         hypo = box_from_raw(params.hypo_raw, grid)
         t0 = (params.t0 if params.t0 is not None
               else torch.zeros(hypo.shape[:-1], dtype=torch.float32,
                                device=device))
+        if locate:
+            # Every chain's events against the one set of fixed tables.
+            C = hypo.shape[0]
+            tt = interp_tables(fixed_tables, hypo.reshape(-1, D), grid)
+            return tt.reshape(n_sta, C, n_ev).permute(1, 2, 0) + t0[..., None]
+        tables = traveltime_tables(slowness_of(params), data.sta_xyz, grid,
+                                   econf, differentiable=differentiable)
         return predict_events(tables, hypo, t0, grid)
 
     def residuals(params: Params):
@@ -205,7 +247,7 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
 
     def lik_term(r, mask, sig):
         sig = sig.expand_as(r)
-        if joint and cfg.marginalize_t0:
+        if events and cfg.marginalize_t0:
             return _marginalized_t0_loglik(r, sig, mask)
         return _gaussian_loglik(r, sig, mask)
 
@@ -234,11 +276,13 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
 
     def init_params(gen: torch.Generator, n_chains: int,
                     jitter: float = 1.0) -> Params:
-        """Chain starts near the prior's centre, drawn in the order u,
-        hypo_raw, t0, log_sigma."""
-        u = jitter * 0.1 * cfg.prior_sigma_u * randn(gen, (n_chains,) + inv_shape)
-        hypo_raw = t0 = None
-        if joint:
+        """Chain starts near the prior's centre, drawn in the order u (none
+        in locate mode), hypo_raw, t0, log_sigma."""
+        u = hypo_raw = t0 = None
+        if not locate:
+            u = (jitter * 0.1 * cfg.prior_sigma_u
+                 * randn(gen, (n_chains,) + inv_shape))
+        if events:
             hypo_raw = jitter * 0.5 * randn(gen, (n_chains, n_ev, D))
             t0 = (jitter * 0.1 * cfg.prior_sigma_t0
                   * randn(gen, (n_chains, n_ev)) if sample_t0 else None)
@@ -250,10 +294,12 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
         ``hypo_raw`` standard logistic (the uniform-in-box prior pushed
         through the inverse sigmoid), ``t0 ~ N(0, prior_sigma_t0^2)``,
         ``log_sigma ~ N(mu, sigma_hyper^2)`` (mu = 0, or ``noise_slab_mu``
-        under spike-slab) and ``noise_z ~ Bernoulli(noise_p0)``."""
-        u = cfg.prior_sigma_u * randn(gen, (n,) + inv_shape)
-        hypo_raw = t0 = ls = z = None
-        if joint:
+        under spike-slab) and ``noise_z ~ Bernoulli(noise_p0)``; no ``u`` in
+        locate mode."""
+        u = hypo_raw = t0 = ls = z = None
+        if not locate:
+            u = cfg.prior_sigma_u * randn(gen, (n,) + inv_shape)
+        if events:
             p = torch.rand((n, n_ev, D), generator=gen, dtype=torch.float32,
                            device=device).clamp(1e-7, 1.0 - 1e-7)
             hypo_raw = torch.log(p) - torch.log1p(-p)
@@ -309,11 +355,59 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
         whose cotangent lives in one table field, so the rows' fields are
         gathered into a batch of ``n_obs`` and pulled back together (the
         reference pulls back one-hot cotangents one row at a time). In
-        joint mode the hypocentre columns of row ``(e, s)`` are the slope
-        of table ``s`` at event ``e``, and its ``t0`` column is 1."""
+        joint and locate modes the hypocentre columns of row ``(e, s)`` are
+        the slope of table ``s`` at event ``e``, and its ``t0`` column is 1;
+        in locate mode those are all the columns (no ``u``, no solve: the
+        slopes of the fixed tables)."""
+        n_chains = (params.u if params.u is not None
+                    else params.hypo_raw).shape[0]
+        if n_chains != 1:
+            raise ValueError(f"jacobian takes one chain, got {n_chains}")
+        if events:
+            pt = torch.arange(n_ev, device=device).repeat_interleave(n_sta)
+        if locate:
+            n_obs = n_ev * n_sta
+            with torch.enable_grad():
+                # One copy of the events per station, so that each (station,
+                # event) slope is its own gradient.
+                h = params.hypo_raw[0].detach().unsqueeze(0).expand(
+                    n_sta, n_ev, D).clone().requires_grad_(True)
+                idx = grid.to_index_coords(box_from_raw(h, grid))
+                t_se = sample_linear(fixed_tables, idx)
+                (g_h,) = torch.autograd.grad(t_se.sum(), [h])
+            t_rows = t_se.detach().T.reshape(n_obs)          # rows (e, s)
+            g_rows = g_h.transpose(0, 1).reshape(n_obs, D)
+            blocks = []
+        else:
+            t_rows, J_u, g_rows = u_columns(params)
+            n_obs = t_rows.shape[0]
+            blocks = [J_u]
+        if events:
+            rows = torch.arange(n_obs, device=device)
+            J_h = torch.zeros((n_obs, n_ev, D), dtype=torch.float32,
+                              device=device)
+            J_h[rows, pt] = g_rows
+            blocks.append(J_h.reshape(n_obs, -1))
+            if params.t0 is not None:
+                t_rows = t_rows + params.t0[0].detach()[pt]
+                J_t = torch.zeros((n_obs, n_ev), dtype=torch.float32,
+                                  device=device)
+                J_t[rows, pt] = 1.0
+                blocks.append(J_t)
+        # The noise leaves do not enter the prediction: zero columns.
+        n_noise = sum(int(x[0].numel()) for x in (params.log_sigma,
+                                                  params.noise_z)
+                      if x is not None)
+        if n_noise:
+            blocks.append(torch.zeros((n_obs, n_noise), dtype=torch.float32,
+                                      device=device))
+        return t_rows, torch.cat(blocks, dim=1)
+
+    def u_columns(params: Params):
+        """``(t_rows, J_u, hypocentre slopes or None)`` of the tomo and
+        joint Jacobians: one forward solve, then one transport batch of the
+        rows' fields."""
         u = params.u
-        if u.shape[0] != 1:
-            raise ValueError(f"jacobian takes one chain, got {u.shape[0]}")
         if joint:
             n_a, n_b = n_ev, n_sta
             tab_xyz = data.sta_xyz
@@ -349,29 +443,8 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
             idx = grid.to_index_coords(xyz).unsqueeze(1)
             t_rows = sample_linear(T_rows, idx)[:, 0]
             grads = torch.autograd.grad(t_rows.sum(), wrt)
-        J_u = grads[0].reshape(n_obs, -1)
-        t_rows = t_rows.detach()
-        blocks = [J_u]
-        if joint:
-            rows = torch.arange(n_obs, device=device)
-            J_h = torch.zeros((n_obs, n_ev, D), dtype=torch.float32,
-                              device=device)
-            J_h[rows, pt] = grads[1]
-            blocks.append(J_h.reshape(n_obs, -1))
-            if params.t0 is not None:
-                t_rows = t_rows + params.t0[0].detach()[pt]
-                J_t = torch.zeros((n_obs, n_ev), dtype=torch.float32,
-                                  device=device)
-                J_t[rows, pt] = 1.0
-                blocks.append(J_t)
-        # The noise leaves do not enter the prediction: zero columns.
-        n_noise = sum(int(x[0].numel()) for x in (params.log_sigma,
-                                                  params.noise_z)
-                      if x is not None)
-        if n_noise:
-            blocks.append(torch.zeros((n_obs, n_noise), dtype=torch.float32,
-                                      device=device))
-        return t_rows, torch.cat(blocks, dim=1)
+        return (t_rows.detach(), grads[0].reshape(n_obs, -1),
+                grads[1] if joint else None)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
@@ -379,8 +452,8 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
     # The indicators' scale 0 freezes them for every continuous kernel;
     # they move only through noise_gibbs.
     prior_scales = Params(
-        u=full(inv_shape, cfg.prior_sigma_u),
-        hypo_raw=full((n_ev, D), 1.0) if joint else None,
+        u=None if locate else full(inv_shape, cfg.prior_sigma_u),
+        hypo_raw=full((n_ev, D), 1.0) if events else None,
         t0=full((n_ev,), cfg.prior_sigma_t0) if sample_t0 else None,
         log_sigma=(full(ls_shape, cfg.sigma_hyper) if ls_shape is not None
                    else None),

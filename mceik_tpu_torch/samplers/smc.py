@@ -16,14 +16,19 @@ particles x 8 sources = 80,000 fields in one solve. The log-evidence estimate
 :func:`mutate` and :func:`reweight_resample` take their random draws as
 tensors, as the MCMC kernels do, so a test can replay JAX's draws. As in the
 reference, beta and its increments enter the device arithmetic in fp32.
-Sharding the population (a ``mesh``), checkpoints and resume are not ported
-yet.
+With a checkpoint path, the population, the generator's state and the
+ladder (stage, beta, log Z, the betas, ESS and acceptance histories) are
+written after every stage, so a resumed run continues the ladder and its
+random stream: killed after stage k and resumed, it ends with the
+uninterrupted run's result. Sharding the population (a ``mesh``) is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -31,8 +36,10 @@ import torch
 
 from mceik_tpu_torch.dist.resample import (ess_from_log_weights, resample_tree,
                                            systematic_indices)
+from mceik_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mceik_tpu_torch.model.posterior import noise_gibbs_draws
-from mceik_tpu_torch.utils import tree_map, tree_random_normal, tree_where
+from mceik_tpu_torch.utils import (tree_leaves, tree_map, tree_random_normal,
+                                   tree_where)
 
 
 @dataclasses.dataclass
@@ -186,17 +193,45 @@ def run_smc(posterior, gen: torch.Generator, n_particles: int,
             checkpoint_path: Optional[str] = None,
             resume: Optional[str] = None) -> SMCResult:
     """Full tempered SMC run, prior -> posterior (or ``max_stages``
-    stages). The random draws come from ``gen`` (on the posterior's
-    device)."""
+    stages in all, a resumed run's earlier stages included). The random
+    draws come from ``gen`` (on the posterior's device).
+
+    checkpoint_path: write the population, ``gen``'s state and the ladder
+                     after every stage (atomically).
+    resume:          continue the run whose checkpoint this is, when the
+                     file exists (else start fresh): the population and
+                     ``gen`` are restored, so the remaining stages are the
+                     uninterrupted run's."""
     if mesh is not None:
         raise NotImplementedError("sharding SMC particles over a mesh is "
                                   "not ported yet")
-    if checkpoint_path or resume:
-        raise NotImplementedError("SMC checkpoints and resume are not "
-                                  "ported yet")
-    state = init_particles(posterior, gen, n_particles, step_size)
     betas, ess_hist, acc_hist, seconds = [0.0], [float(n_particles)], [], []
     log_z, beta, n_stages = 0.0, 0.0, 0
+    if resume and os.path.exists(resume):
+        # The example only gives the structure (no solve); every leaf and
+        # the generator come from the checkpoint.
+        params = posterior.sample_prior(gen, n_particles)
+        dev = tree_leaves(params)[0].device
+        zeros = torch.zeros(n_particles, dtype=torch.float32, device=dev)
+        example = {"state": SMCState(params=params, log_prior=zeros,
+                                     log_lik=zeros.clone(),
+                                     log_step=_f32(0.0, dev)),
+                   "rng": gen.get_state()}
+        ck, meta = load_checkpoint(resume, example)
+        state = ck["state"]
+        gen.set_state(ck["rng"])
+        betas, ess_hist = list(meta["betas"]), list(meta["ess_history"])
+        acc_hist = list(meta["accept_history"])
+        seconds = list(meta["stage_seconds"])
+        log_z, beta, n_stages = meta["log_z"], betas[-1], meta["stage"]
+        if verbose:
+            print(f"[smc] resumed stage={n_stages} beta={beta:.4f} "
+                  f"logZ={log_z:.2f} from {resume}", flush=True)
+    else:
+        if resume and verbose:
+            print(f"[smc] resume path {resume} does not exist — starting "
+                  "fresh", flush=True)
+        state = init_particles(posterior, gen, n_particles, step_size)
     target_ess = ess_threshold * n_particles
     while beta < 1.0 and n_stages < max_stages:
         t0 = time.perf_counter()
@@ -211,6 +246,14 @@ def run_smc(posterior, gen: torch.Generator, n_particles: int,
         if verbose:
             print(f"[smc] stage={n_stages} beta={beta:.4f} ess={ess:.0f} "
                   f"accept={acc:.3f} logZ={log_z:.2f}", flush=True)
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path,
+                            {"state": state, "rng": gen.get_state()},
+                            meta={"stage": n_stages, "beta": beta,
+                                  "log_z": log_z, "betas": betas,
+                                  "ess_history": ess_hist,
+                                  "accept_history": acc_hist,
+                                  "stage_seconds": seconds})
     return SMCResult(state=state, betas=betas, ess_history=ess_hist,
                      accept_history=acc_hist, log_evidence=log_z,
                      n_stages=n_stages, stage_seconds=seconds)

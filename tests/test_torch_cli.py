@@ -68,7 +68,10 @@ def test_package_imports_without_jax():
             "mceik_tpu_torch.model.laplace, mceik_tpu_torch.samplers.am_full, "
             "mceik_tpu_torch.samplers.mala, mceik_tpu_torch.samplers.hmc, "
             "mceik_tpu_torch.samplers.nuts, mceik_tpu_torch.samplers.pcn, "
-            "mceik_tpu_torch.model.whitened, mceik_tpu_torch.diag.profile\n"
+            "mceik_tpu_torch.model.whitened, mceik_tpu_torch.diag.profile, "
+            "mceik_tpu_torch.forward.locate, "
+            "mceik_tpu_torch.forward.tables_cache, "
+            "mceik_tpu_torch.io.loaders, mceik_tpu_torch.io.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mceik_tpu'))\n"
             "print(bad)\n")
@@ -133,12 +136,15 @@ def test_cli_runs_tiny_c2_mala_on_cpu(capsys):
 
 def test_cli_refuses_missing_card_and_later_slices():
     """The default device is cuda: with no card the run fails loudly
-    instead of falling back to the CPU. Features not ported yet raise."""
+    instead of falling back to the CPU. Features not ported yet raise
+    (profiling, more than one device), and so does locate mode over a tomo
+    dataset, which has no stations to locate against."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["run", C2, *TINY])
+    with pytest.raises(NotImplementedError, match="profil.*not ported"):
+        cli.main(["run", C2, *TINY, "io.profile_dir=prof", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        cli.main(["run", C2, *TINY, "dist.n_devices=2", "--device", "cpu"])
+    with pytest.raises(TypeError, match="locate mode needs EventData"):
         cli.main(["run", C2, *TINY, "model.mode=locate", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["run", C2, *TINY, "io.checkpoint_path=ck.h5",
-                  "--device", "cpu"])

@@ -42,6 +42,7 @@ from mceik_tpu_torch.dist import resample as tres
 from mceik_tpu_torch.eikonal.solve import EikonalConfig
 from mceik_tpu_torch.forward.predict import predict_tomo
 from mceik_tpu_torch.grid import Grid
+from mceik_tpu_torch.io.config_io import apply_overrides, load_config
 from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.model.posterior import build_posterior
 from mceik_tpu_torch.samplers import rwm, smc
@@ -392,8 +393,10 @@ def test_smc_gaussian_moments_and_evidence():
     assert len(result.stage_seconds) == result.n_stages
     with pytest.raises(NotImplementedError, match="mesh is not ported yet"):
         smc.run_smc(TToy(), gen, 64, mesh=object())
-    with pytest.raises(NotImplementedError, match="resume are not ported yet"):
-        smc.run_smc(TToy(), gen, 64, checkpoint_path="x")
+    with pytest.raises(NotImplementedError, match="profil.*not ported"):
+        smc.run_smc_config(apply_overrides(load_config(os.path.join(
+            REPO, "configs", "c4_smc.json")), ["io.profile_dir=prof"]),
+            device="cpu")
 
 
 # --- configs 1 and 4 through the CLI ---------------------------------------
