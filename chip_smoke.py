@@ -159,7 +159,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with a checkpoint, then resumed to the 3-stage cap, against phase 9's
    uninterrupted run (bars of tests/test_dist.py: betas rtol 1e-6, log Z
    rtol and atol 1e-5, particles rtol and atol 1e-6; bit for bit
-   printed): K3's warp route launched on the resumed ladder.
+   printed): K3's warp route launched on the resumed ladder;
+27. distribution, each run launched by ``torchrun --standalone
+   --nproc_per_node=2`` through the port's rank entry
+   ``mceik_tpu_torch.dist.dryrun``, its two gloo ranks sharing the one card
+   (NCCL refuses two ranks on one device), each rank's kernel launch counts
+   read back: phase 7's c2 AM run (16 chains, 8 per rank) through the CLI,
+   its records against phase 7's (bar: rtol 2e-4 on every logpost and the
+   step size; the gap printed), K1 launched on both ranks;
+28. config 4's SMC at 10,000 particles over the 2 ranks through
+   ``run_smc_config``, 3 stages, against phase 9 (the bars of
+   tests/test_dist.py: betas atol 1e-4, the same stage count, log Z within
+   0.05, particle means within 0.08, variances within 30%; the gaps
+   printed), K3's warp route launched on both ranks;
+29. config 5's geometry: its 24 station tables on the 128^3 grid through
+   ``solve_eikonal_sharded`` on the 2 ranks (plain cycles on slabs of 64
+   planes, tol 1e-5, ``max_iters`` 200) against the unsharded K1 solve
+   (bar: atol 2e-3), then the reshard and the prediction of its 32 events
+   against ``predict_events`` on the same tables (bar: atol 1e-5);
+30. a one-rank NCCL group on the card driving every collective helper of
+   ``dist/mesh.py`` on CUDA tensors, and a one-rank gloo group beside it
+   (the host staging), each helper's result equal to its input, with ms
+   per collective;
+31. the port's dryrun (legs A-E) on the 2 ranks on the card: every leg
+   against its unsharded run, each rank's launches printed.
 
 The line before the last is a JSON object listing the kernels' entries
 with their launch counts (K1 and K4 on the MALA path, K3 on the SMC path,
@@ -170,7 +193,9 @@ K1's and K4's config-3 NUTS counts and times, K1's config-5 counts and
 times, K1's launches on the locate path, on the table cache's miss and on
 the resumed AM and MALA runs, K4's on the resumed MALA run, K3's warp
 route's on the resumed SMC ladder, K5's time forced on config 2's batch, K3's config-1 times, K6's
-config-1 MALA count and config-4 times), errors, times and bounds (the
+config-1 MALA count and config-4 times; each rank's K1 launches on the
+sharded AM run, the sharded tables and the dryrun, K3's warp launches on
+the sharded SMC ladder), errors, times and bounds (the
 larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 counted from each kernel's source at the shapes timed; a solve's bound
 moves its bytes once and does the operations of every cycle its fields
@@ -445,6 +470,96 @@ def _run_cli(cli, argv):
     recs = [json.loads(line.split("] ", 1)[1]) for line in lines
             if line.startswith("[mceik] ")]
     return recs, lines, wall
+
+
+def _torchrun(n, args, label, timeout=600):
+    """``torchrun --standalone --nproc_per_node=n <args>`` from the
+    repository root in a session of its own (killed whole on a timeout);
+    returns (stdout, wall seconds). Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", *args]
+    print(f"{label}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError(f"{label}: the ranks did not finish in "
+                           f"{timeout} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: torchrun exited {proc.returncode}:\n"
+                           f"{out[-3000:]}\n{err[-6000:]}")
+    return out, wall
+
+
+def _rank_results(out_dir, n):
+    """What each rank of a ``mceik_tpu_torch.dist.dryrun`` launch wrote."""
+    import torch
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+def _collectives_on_card(x, tab):
+    """Phase 30: a one-rank NCCL group and a one-rank gloo group on the
+    card, every collective helper of ``dist/mesh.py`` on CUDA tensors (each
+    must return its input), and ms per collective on ``x`` (``tab`` for the
+    all-to-all). Returns ``{backend: {helper: ms}}``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mceik_tpu_torch.dist import mesh as dmesh
+
+    dev = x.device
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    coll_ms = {}
+    try:
+        meshes = {"nccl": dmesh.Mesh(world=1, rank=0, device=dev,
+                                     backend="nccl"),
+                  "gloo": dmesh.Mesh(world=1, rank=0, device=dev,
+                                     backend="gloo",
+                                     group=dist.new_group([0],
+                                                          backend="gloo"))}
+        for name, m in meshes.items():
+            checks = {
+                "all_reduce_sum": torch.equal(dmesh.all_reduce_sum(x, m), x),
+                "all_reduce_max": torch.equal(dmesh.all_reduce_max(x, m), x),
+                "all_gather0": torch.equal(dmesh.all_gather0(x, m), x),
+                "all_to_all01": torch.equal(dmesh.all_to_all01(tab, m), tab),
+                "broadcast0": torch.equal(dmesh.broadcast0(x, m), x),
+                "any_rank": dmesh.any_rank(torch.tensor(True, device=dev), m)
+                and not dmesh.any_rank(torch.tensor(False, device=dev), m),
+                "gather_chains": torch.equal(
+                    dmesh.gather_chains({"x": x}, m)["x"], x),
+                "replicate": torch.equal(dmesh.replicate({"x": x}, m)["x"],
+                                         x),
+                "shard_chains": torch.equal(
+                    dmesh.shard_chains({"x": x}, m)["x"], x),
+            }
+            if not all(checks.values()):
+                raise RuntimeError(f"phase 30 ({name}): {checks}")
+            ms = {op: _timed(lambda: getattr(dmesh, op)(x, m), reps=20)[1]
+                  for op in ("all_reduce_sum", "all_gather0", "broadcast0")}
+            ms["all_to_all01"] = _timed(lambda: dmesh.all_to_all01(tab, m),
+                                        reps=20)[1]
+            coll_ms[name] = ms
+        print(f"phase 30: one-rank NCCL and gloo groups on the card: every "
+              f"helper returns its input on CUDA tensors; ms per collective "
+              f"(a {tuple(x.shape)} fp32 operand, {x.numel() * 4} bytes; "
+              f"all_to_all01 {tuple(tab.shape)}) {json.dumps(coll_ms)}")
+    finally:
+        dist.destroy_process_group()
+    return coll_ms
 
 
 def _check_run(recs, label, n_warm, n_chains=N_CHAINS):
@@ -852,6 +967,7 @@ def main() -> int:
         "run", AM_CONFIG, *AM_ARGS, f"io.checkpoint_path={am_ck}",
         "io.checkpoint_every=40"])
     am_launches = k1.launches
+    am_recs = recs
     if am_launches <= 0:
         raise RuntimeError("AM path: the sweep kernel was never launched")
     am_cfg = apply_overrides(load_config(AM_CONFIG), AM_ARGS)
@@ -1873,6 +1989,128 @@ def main() -> int:
                            "ladder")
     print(f"phases 21-26 (locate, grid search, resume) wall "
           f"{time.perf_counter() - t_new:.1f} s")
+
+    # 27-31. Distribution on the one card: two gloo ranks share cuda:0
+    # (NCCL refuses two ranks on one device), and a one-rank NCCL group
+    # drives the NCCL branch of the collectives. Speed across several
+    # cards is not measured here: there is one card.
+    t_dist = time.perf_counter()
+    del summaries[:]
+    torch.cuda.empty_cache()
+    entry = ["-m", "mceik_tpu_torch.dist.dryrun"]
+
+    # 27. Phase 7's c2 AM run, 16 chains, sharded over 2 ranks (8 each).
+    out27 = os.path.join(tmp, "dist_am")
+    text, wall = _torchrun(2, [*entry, "cli", out27, "run", AM_CONFIG,
+                               *AM_ARGS], "phase 27 (c2 AM on 2 ranks)")
+    ranks27 = _rank_results(out27, 2)
+    am_rank_launches = [r["launches"]["sweep3d"] for r in ranks27]
+    recs27 = [json.loads(x.split("] ", 1)[1]) for x in text.splitlines()
+              if x.startswith("[mceik] ")]
+    first27 = [x for x in text.splitlines() if x.startswith("[mceik")][0]
+    keys = ("logpost_mean", "logpost_min", "logpost_max", "step_size")
+    pairs = [(a[k], b[k]) for a, b in zip(recs27, am_recs) for k in keys
+             if k in b]
+    gap27 = max(abs(a - b) / abs(b) for a, b in pairs)
+    same = ([r["phase"] for r in recs27] == [r["phase"] for r in am_recs]
+            and [r.get("step") for r in recs27]
+            == [r.get("step") for r in am_recs])
+    print(f"phase 27: first line {first27!r}; {len(recs27)} records, max "
+          f"relative gap to phase 7's unsharded records "
+          f"{gap27:.3e} (bar 2e-4) over {len(pairs)} logpost and step "
+          f"values; K1 launches per rank {am_rank_launches} (phase 7: "
+          f"{am_launches}); {recs27[-1]['chain_steps_per_s']} chain-steps/s "
+          f"in rank 0's last record (phase 7: "
+          f"{am_recs[-1]['chain_steps_per_s']}); wall {wall:.1f} s with "
+          f"start-up")
+    if not (same and gap27 <= 2e-4 and min(am_rank_launches) > 0
+            and "backend gloo" in first27):
+        raise RuntimeError(f"phase 27: sharded c2 AM disagrees (records "
+                           f"aligned {same}, gap {gap27}, launches "
+                           f"{am_rank_launches}, {first27!r})")
+
+    # 28. Config 4's SMC, 10,000 particles over 2 ranks, 3 stages.
+    out28 = os.path.join(tmp, "dist_smc")
+    os.makedirs(out28)
+    torch.save({"config": C4_CONFIG, "max_stages": SMC_STAGES},
+               os.path.join(out28, "in.pt"))
+    text, wall = _torchrun(2, [*entry, "task", "smc_config", out28,
+                               os.path.join(out28, "in.pt")],
+                           "phase 28 (c4 SMC on 2 ranks)")
+    ranks28 = _rank_results(out28, 2)
+    sh = ranks28[0]
+    smc_rank_warp = [r["launches"]["sweep2d"] - r["launches"]["sweep2d_block"]
+                     for r in ranks28]
+    u_sh = sh["params"].to(dev)
+    u_un = res.state.params.u
+    d_beta28 = max(abs(a - b) for a, b in zip(sh["betas"], res.betas))
+    d_logz28 = abs(sh["log_evidence"] - res.log_evidence)
+    d_mean28 = float((u_sh.mean(0) - u_un.mean(0)).abs().max())
+    v_rel28 = float(((u_sh.var(0) - u_un.var(0)).abs()
+                     / u_un.var(0).clamp(min=1e-30)).max())
+    d_part28 = float((u_sh - u_un).abs().max())
+    print(f"phase 28: {sh['n_stages']} stages over 2 ranks, betas "
+          f"{sh['betas']}; against phase 9 max |dbeta| {d_beta28:.3e} (bar "
+          f"1e-4), |dlogZ| {d_logz28:.3e} (bar 0.05), max |dmean| "
+          f"{d_mean28:.3e} (bar 0.08), max relative dvar {v_rel28:.3e} (bar "
+          f"0.3), max |dparticle| {d_part28:.3e}; K3 warp launches per rank "
+          f"{smc_rank_warp}; s per stage {sh['stage_seconds']} (phase 9: "
+          f"{res.stage_seconds}); wall {wall:.1f} s with start-up")
+    if not (sh["n_stages"] == res.n_stages and len(sh["betas"]) ==
+            len(res.betas) and d_beta28 <= 1e-4 and d_logz28 < 0.05
+            and d_mean28 <= 0.08 and v_rel28 <= 0.3
+            and min(smc_rank_warp) > 0):
+        raise RuntimeError("phase 28: sharded SMC disagrees with phase 9")
+
+    # 29. Config 5's 24 station tables on 128^3 through the grid-sharded
+    # solve on 2 ranks, against the unsharded K1 solve; the reshard and the
+    # prediction of its 32 events against predict_events.
+    out29 = os.path.join(tmp, "dist_tables")
+    os.makedirs(out29)
+    torch.save({"config": C5_CONFIG, "tol": 1e-5, "max_iters": 200},
+               os.path.join(out29, "in.pt"))
+    text, wall = _torchrun(2, [*entry, "task", "tables", out29,
+                               os.path.join(out29, "in.pt")],
+                           "phase 29 (c5 tables on 2 ranks)")
+    ranks29 = _rank_results(out29, 2)
+    t29 = ranks29[0]
+    tables_rank_launches = [r["launches"]["sweep3d"] for r in ranks29]
+    print(f"phase 29: {t29['shape'][0]} tables of "
+          f"{tuple(t29['shape'][1:4])}, slabs of {t29['shape'][1] // 2} "
+          f"planes: sharded solve {t29['sharded_s']:.3f} s "
+          f"({t29['sharded_cycles']} plain cycles), "
+          f"unsharded K1 solve {t29['unsharded_s']:.3f} s, max |sharded - "
+          f"K1| {t29['solve_gap']:.3e} (bar 2e-3; max T {t29['max_T']:.2f}); "
+          f"reshard and prediction of {t29['shape'][4]} events "
+          f"{t29['reshard_s']:.3f} s, max |resharded - predict_events| "
+          f"{max(r['predict_gap'] for r in ranks29):.3e} (bar 1e-5); K1 "
+          f"launches per rank {tables_rank_launches} (the data's solve on "
+          f"both, the unsharded solve on rank 0); wall {wall:.1f} s")
+    if not (t29["solve_gap"] <= 2e-3
+            and max(r["predict_gap"] for r in ranks29) <= 1e-5
+            and tables_rank_launches[0] > 0):
+        raise RuntimeError("phase 29: the grid-sharded tables disagree")
+
+    # 30. A one-rank NCCL group on the card drives every collective helper
+    # on CUDA tensors; a one-rank gloo group beside it, the host staging.
+    # The operand: c2's adaptation all-gather, every chain's position.
+    x = torch.randn((N_CHAINS, math.prod(cfg.model.inv_shape)),
+                    generator=gen, device=dev)
+    _collectives_on_card(x, torch.randn((4, 8, 16, 16), generator=gen,
+                                        device=dev))
+
+    # 31. The port's dryrun (legs A-E) on 2 ranks on the card.
+    text, wall = _torchrun(2, [*entry], "phase 31 (dryrun on 2 ranks)")
+    ok31 = [x for x in text.splitlines() if x.startswith("dryrun over")]
+    rank31 = [json.loads(x.split(": ", 1)[1]) for x in text.splitlines()
+              if x.startswith("dryrun rank ")]
+    print(f"phase 31: {ok31[0] if ok31 else text[-2000:]}; launches per "
+          f"rank {rank31}; wall {wall:.1f} s with start-up")
+    if not (ok31 and "ALL OK" in ok31[0] and len(rank31) == 2
+            and min(r["sweep3d"] for r in rank31) > 0):
+        raise RuntimeError("phase 31: the dryrun failed")
+    print(f"phases 27-31 (distribution) wall "
+          f"{time.perf_counter() - t_dist:.1f} s")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
@@ -1919,6 +2157,9 @@ def main() -> int:
         "locate_cache_miss_launches": miss_launches,
         "am_resume_launches": am_res_launches,
         "mala_resume_launches": mala_res_launches["sweep3d_cycle"],
+        "dist_am_rank_launches": am_rank_launches,
+        "dist_tables_rank_launches": tables_rank_launches,
+        "dryrun_rank_launches": [r["sweep3d"] for r in rank31],
     }, {
         "name": "transport3d_cycle",
         "route": "cuda",
@@ -1966,6 +2207,7 @@ def main() -> int:
         "launches": smc_launches - smc_block,
         "field_cycles": smc_cycles,
         "smc_resume_launches": smc_res_warp,
+        "dist_smc_rank_launches": smc_rank_warp,
         "max_abs_err": max(errs["sweep2d"]),
         "ms": k3_c4["warp"][1],
         "plain_ms": ms_k3s_plain,

@@ -19,7 +19,10 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
 - ``samplers`` — the generic MCMC runner, dual averaging, random-walk
   Metropolis, adaptive Metropolis (diagonal and full covariance),
   preconditioned MALA, and tempered SMC (its own entry point).
-- ``dist``     — systematic resampling of a particle population.
+- ``dist``     — ranks under ``torchrun`` (``torch.distributed``): chain and
+  particle sharding, the collectives, sharded resampling, the dryrun; the
+  grid-sharded solve (``eikonal/dist_sweep.py``) and the station reshard
+  of its tables (``forward/reshard.py``).
 - ``diag``     — Welford moments, R-hat and ESS; a device profile of
   sampler steps or SMC stages (``python -m mceik_tpu_torch.diag.profile``).
 - ``io``       — JSON configs with dotted overrides, JSONL metrics.

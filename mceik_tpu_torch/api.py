@@ -21,10 +21,20 @@ setup, whose pinned covariance is in the restored hyper) and continues the
 interrupted run's random stream, where the reference re-derives its keys
 from the seed. SMC has its own entry point,
 ``samplers.smc.run_smc_config``, which the CLI calls.
+
+Under a multi-process launcher (``torchrun``) the chains are sharded over
+the ranks (``dist/mesh.py``): every rank sets up the same posterior and
+draws every chain's start, keeps its own rows, and takes the unsharded
+run's draws; the adaptation pools every rank's chains, and rank 0 writes
+the records, the summary and the checkpoint (the global chain batch, which
+resumes sharded or not). A chain count that does not divide over the ranks
+runs unsharded on every rank, rank 0 reporting. With ``io.profile_dir``
+rank 0 writes a ``torch.profiler`` trace of the second segment there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -38,8 +48,11 @@ from mceik_tpu_torch.config import RunConfig
 from mceik_tpu_torch.datasets import make_dataset
 from mceik_tpu_torch.diag.ess import ess, ess_per_param, split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
+from mceik_tpu_torch.dist.mesh import (Mesh, chain_mesh, gather_chains,
+                                       init_distributed, shard_chains)
 from mceik_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mceik_tpu_torch.io.metrics import MetricsLogger
+from mceik_tpu_torch.io.trace import profiler, write_trace
 from mceik_tpu_torch.model.params import Params, box_logjac
 from mceik_tpu_torch.model.posterior import build_posterior, noise_gibbs_draws
 from mceik_tpu_torch.samplers import am, am_full, hmc, mala, nuts, pcn, rwm
@@ -85,26 +98,19 @@ def _check_supported(config: RunConfig) -> None:
 
 
 def check_run_options(config: RunConfig) -> None:
-    """Refuse the io and dist options the port does not run yet (every
-    sampler).
-
-    ``dist.multihost`` without a multi-process launcher (``WORLD_SIZE``
-    unset or 1) warns and runs as one process on the requested device, as
-    the reference's ``init_distributed`` falls back when no coordinator
-    answers; more than one process or device is distribution, not ported
-    yet."""
-    io, dist = config.io, config.dist
-    if io.profile_dir:
-        raise NotImplementedError("io.profile_dir: profiling is not ported")
-    world = os.environ.get("WORLD_SIZE", "") or "1"
-    if (dist.n_devices or 1) > 1 or world != "1":
-        raise NotImplementedError(
-            f"multi-device runs (dist.n_devices={dist.n_devices}, "
-            f"WORLD_SIZE={world}): distribution is not ported yet")
-    if dist.multihost:
-        warnings.warn("dist.multihost=true but no multi-process launcher "
-                      "(WORLD_SIZE unset or 1): continuing as one process on "
-                      "the requested device")
+    """Warn, before any setup, where the dist options fall back: several
+    devices (``dist.n_devices``) or ``dist.multihost`` asked for without a
+    multi-process launcher (``WORLD_SIZE`` unset or 1) run as one process
+    on the requested device, as the reference's ``init_distributed`` falls
+    back when no coordinator answers. Under a launcher the ranks shard
+    (``dist.mesh.init_distributed``)."""
+    dist = config.dist
+    world = int(os.environ.get("WORLD_SIZE", "") or 1)
+    if world <= 1 and ((dist.n_devices or 1) > 1 or dist.multihost):
+        warnings.warn(
+            f"dist.n_devices={dist.n_devices}, dist.multihost="
+            f"{dist.multihost} but no multi-process launcher (WORLD_SIZE "
+            "unset or 1): continuing as one process on the requested device")
 
 
 def check_noise_options(config: RunConfig) -> None:
@@ -193,14 +199,14 @@ def _laplace(posterior, scfg, logger):
     return p_map, cov
 
 
-def _gradient_kernel(scfg, logpost_fn):
+def _gradient_kernel(scfg, logpost_fn, mesh: Mesh):
     if scfg.algorithm == "hmc":
         return hmc.make_kernel(logpost_fn, scfg.n_leapfrog)
-    return nuts.make_kernel(logpost_fn, scfg.max_tree_depth)
+    return nuts.make_kernel(logpost_fn, scfg.max_tree_depth, mesh=mesh)
 
 
 def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger,
-                      resuming: bool = False):
+                      resuming: bool = False, mesh: Mesh = Mesh()):
     """Returns ``(kernel, adapter, hyper, finalize_fn, states, params_of)``,
     with the chains initialised (RWM has no finalize). ``params_of`` maps
     whitened chain states to model params, and is None when the states are
@@ -215,7 +221,10 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger,
     restored hyper) and the states and hyper here only give the structure.
     The whitened samplers cannot skip theirs: the map from whitened to
     model coordinates lives in the kernel, not in the checkpointed state,
-    and the setup rebuilds it from the same seeded ascent."""
+    and the setup rebuilds it from the same seeded ascent.
+
+    The states are every chain's (on every rank); ``mesh`` is what NUTS
+    decides its loop exits over."""
     scales = posterior.prior_scales
     lp = posterior.logpost
     algo = scfg.algorithm
@@ -234,7 +243,8 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger,
         states = init_chain_states(wv.logpost_u, wv.init_u, gen,
                                    scfg.n_chains)
         target = max(scfg.target_accept, 0.7 if algo == "hmc" else 0.8)
-        return (_gradient_kernel(scfg, wv.logpost_u), hmc.make_adapter(target),
+        return (_gradient_kernel(scfg, wv.logpost_u, mesh),
+                hmc.make_adapter(target),
                 hmc.init_hyper(wv.scales_u, scfg.step_size, wv.zero_u),
                 hmc.finalize, states, wv.params_of)
     if algo == "mala":
@@ -290,7 +300,7 @@ def _dispatch_sampler(scfg, posterior, gen: torch.Generator, logger,
     states = init_chain_states(lp, posterior.init_params, gen, scfg.n_chains)
     if algo in ("hmc", "nuts"):
         target = max(scfg.target_accept, 0.7 if algo == "hmc" else 0.8)
-        return (_gradient_kernel(scfg, lp), hmc.make_adapter(target),
+        return (_gradient_kernel(scfg, lp, mesh), hmc.make_adapter(target),
                 hmc.init_hyper(scales, scfg.step_size, scales), hmc.finalize,
                 states, None)
     if algo == "rwm":
@@ -332,7 +342,7 @@ def _wrap_noise_gibbs(kernel, gibbs, beta: float = 1.0):
 
 def spike_slab_warmup(base_kernel, gibbs, adapter, states, hyper,
                       gen: torch.Generator, n_warmup: int, finalize_fn=None,
-                      betas=(0.05, 0.2, 0.5, 1.0)):
+                      betas=(0.05, 0.2, 0.5, 1.0), mesh: Mesh = Mesh()):
     """Annealed-Gibbs warmup for spike-slab noise: the indicator odds are
     tempered up the ladder ``betas``, ``n_warmup // len(betas)`` adapted
     steps per rung (the last rung takes the rest) and one more step each,
@@ -346,7 +356,7 @@ def spike_slab_warmup(base_kernel, gibbs, adapter, states, hyper,
     parts = [w] * (len(betas) - 1) + [max(n_warmup - w * (len(betas) - 1), 1)]
     for beta, part in zip(betas, parts):
         r = run_mcmc(_wrap_noise_gibbs(base_kernel, gibbs, beta), adapter,
-                     states, hyper, gen, n_warmup=part, n_steps=1)
+                     states, hyper, gen, n_warmup=part, n_steps=1, mesh=mesh)
         states, hyper = r.states, r.hyper
     if finalize_fn is not None:
         hyper = finalize_fn(hyper)
@@ -354,7 +364,8 @@ def spike_slab_warmup(base_kernel, gibbs, adapter, states, hyper,
 
 
 def with_noise_gibbs(posterior, kernel, adapter, states, hyper, finalize_fn,
-                     gen: torch.Generator, n_warmup: int):
+                     gen: torch.Generator, n_warmup: int,
+                     mesh: Mesh = Mesh()):
     """Under spike-slab noise: run the annealed warmup and return the
     continuous kernel composed with the exact Gibbs scan, with no warmup
     left. Otherwise everything as it came. Returns ``(kernel, states, hyper,
@@ -365,7 +376,7 @@ def with_noise_gibbs(posterior, kernel, adapter, states, hyper, finalize_fn,
     if n_warmup > 0:
         states, hyper = spike_slab_warmup(kernel, gibbs, adapter, states,
                                           hyper, gen, n_warmup,
-                                          finalize_fn=finalize_fn)
+                                          finalize_fn=finalize_fn, mesh=mesh)
     return _wrap_noise_gibbs(kernel, gibbs), states, hyper, 0
 
 
@@ -391,10 +402,27 @@ def _restore(path, states, hyper, gen: torch.Generator, scfg, verbose):
     return ck["states"], ck["hyper"]
 
 
-def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
-    """Sample the config's posterior on ``device`` ("cuda" or "cpu")."""
+def describe_mesh(mesh: Mesh) -> str:
+    """The line a sharded run starts with on rank 0: its backend and
+    device."""
+    return (f"[mceik-tpu-torch] dist: {mesh.world} ranks, backend "
+            f"{mesh.backend}, rank 0 on {mesh.device}")
+
+
+def run(config: RunConfig, device="cuda", verbose: bool = True,
+        backend: Optional[str] = None) -> RunSummary:
+    """Sample the config's posterior on ``device`` ("cuda" or "cpu"),
+    sharded over the ranks of a multi-process launcher (``backend``: the
+    process group's, "nccl" or "gloo"; by default picked by
+    ``dist.mesh.pick_backend``)."""
     _check_supported(config)
     device = prepare_device(device)
+    mesh = init_distributed(config.dist, device, backend)
+    device = mesh.device
+    if verbose and mesh.root and mesh.sharded:
+        print(describe_mesh(mesh), flush=True)
+    verbose = verbose and mesh.root
+    cmesh = chain_mesh(mesh, config.sampler.n_chains)
     grid = config.grid.build()
     data, truth = make_dataset(grid, config.data, config.model, device=device)
     scfg, io = config.sampler, config.io
@@ -412,7 +440,7 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     logger = MetricsLogger() if verbose else None
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
     kernel, adapter, hyper, finalize_fn, states, params_of = \
-        _dispatch_sampler(scfg, posterior, gen, logger, resuming)
+        _dispatch_sampler(scfg, posterior, gen, logger, resuming, cmesh)
     n_warmup = scfg.n_warmup
     if resuming:
         states, hyper = _restore(io.resume, states, hyper, gen, scfg,
@@ -422,16 +450,21 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     if logger is not None:
         logger.log({"phase": "init", "step": 0, "device": str(device),
                     **_logpost_stats(states.logpost)})
+    # Every rank drew and restored every chain; from here on each holds
+    # its rows.
+    states = shard_chains(states, cmesh)
     n_warm_in = n_warmup
     kernel, states, hyper, n_warmup = with_noise_gibbs(
         posterior, kernel, adapter, states, hyper, finalize_fn, gen,
-        n_warm_in)
-    if logger is not None and n_warmup < n_warm_in:
+        n_warm_in, cmesh)
+    if n_warmup < n_warm_in:
         # The annealed spike-slab warmup ran apart from the segments.
-        logger.log({"phase": "warmup", "step": 0,
-                    "noise_inclusion": round(float(
-                        states.params.noise_z.mean()), 4),
-                    **_logpost_stats(states.logpost)})
+        every = gather_chains(states, cmesh)
+        if logger is not None:
+            logger.log({"phase": "warmup", "step": 0,
+                        "noise_inclusion": round(float(
+                            every.params.noise_z.mean()), 4),
+                        **_logpost_stats(every.logpost)})
 
     # Locate mode samples no slowness: there is none to track.
     track_slowness = config.model.mode in ("tomo", "joint")
@@ -445,11 +478,15 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
         return out
 
     def checkpoint(step, **extra):
-        save_checkpoint(io.checkpoint_path,
-                        {"states": states, "hyper": hyper,
-                         "rng": gen.get_state()},
-                        meta={"step": step, "algorithm": scfg.algorithm,
-                              "precondition": scfg.precondition, **extra})
+        # The global chain batch, written by rank 0 (every rank takes part
+        # in the gather).
+        every = gather_chains(states, cmesh)
+        if mesh.root:
+            save_checkpoint(io.checkpoint_path,
+                            {"states": every, "hyper": hyper,
+                             "rng": gen.get_state()},
+                            meta={"step": step, "algorithm": scfg.algorithm,
+                                  "precondition": scfg.precondition, **extra})
 
     seg = io.log_every if io.log_every > 0 else scfg.n_samples
     if io.checkpoint_every > 0:
@@ -463,23 +500,32 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     welford = None
     step_done = 0
     for si in range(n_seg):
-        r = run_mcmc(kernel, adapter if si == 0 else None, states, hyper, gen,
-                     n_warmup=n_warmup if si == 0 else 0, n_steps=seg,
-                     thin=scfg.thin, track_fn=track_fn, collect_fn=collect_fn,
-                     finalize_fn=finalize_fn if si == 0 else None,
-                     init_welford=welford)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        # The reference traces the second segment (the first compiles).
+        prof = (profiler(device) if io.profile_dir and si == 1 and mesh.root
+                else None)
+        with prof if prof is not None else contextlib.nullcontext():
+            r = run_mcmc(kernel, adapter if si == 0 else None, states, hyper,
+                         gen, n_warmup=n_warmup if si == 0 else 0,
+                         n_steps=seg, thin=scfg.thin, track_fn=track_fn,
+                         collect_fn=collect_fn,
+                         finalize_fn=finalize_fn if si == 0 else None,
+                         init_welford=welford, mesh=cmesh)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        if prof is not None:
+            write_trace(prof, io.profile_dir, verbose, "segment 2")
         states, hyper, welford = r.states, r.hyper, r.welford
         step_done += seg
         seg_results.append(r)
 
+        z = collect_fn(states.params).noise_z
+        if z is not None:
+            z = gather_chains(z, cmesh)
+        last = (_to_numpy(r.logpost_trace)[-1] if len(r.logpost_trace)
+                else _to_numpy(gather_chains(states.logpost, cmesh)))
         if logger is not None:
-            lp = _to_numpy(r.logpost_trace)
-            last = lp[-1] if len(lp) else _to_numpy(states.logpost)
             extra = {k: round(float(r.info_trace[k].mean()), 4)
                      for k in ("divergent", "tree_depth") if k in r.info_trace}
-            z = collect_fn(states.params).noise_z
             if z is not None:
                 # Pooled inclusion rate: the share of (chain, station)
                 # indicators on the slab after the segment.
@@ -511,7 +557,8 @@ def run(config: RunConfig, device="cuda", verbose: bool = True) -> RunSummary:
     accept_trace = np.concatenate(
         [_to_numpy(r.accept_trace) for r in seg_results], axis=0)
 
-    mean, var = welford_finalize(welford_merge_chains(welford))
+    mean, var = welford_finalize(welford_merge_chains(
+        gather_chains(welford, cmesh)))
     post_mean = tree_map(_to_numpy, mean)
     post_var = tree_map(_to_numpy, var)
 

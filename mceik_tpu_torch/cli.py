@@ -4,6 +4,9 @@ Usage:
     python -m mceik_tpu_torch run configs/c2_checkerboard3d.json [section.key=value ...] [--device cuda|cpu]
     python -m mceik_tpu_torch run configs/c4_smc.json [...]   (SMC: samplers.smc.run_smc_config)
     python -m mceik_tpu_torch print-config configs/c2_checkerboard3d.json
+
+Sharded over ranks (chains, or SMC particles), one process per rank:
+    python -m torch.distributed.run --standalone --nproc_per_node=N -m mceik_tpu_torch run <config> [...] [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default="cuda",
                       help="torch device: cuda (default; fails without a "
                            "card) or cpu")
+    runp.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                      help="the process group's backend under a "
+                           "multi-process launcher (default: nccl when "
+                           "every rank has a card of its own, else gloo)")
 
     pc = sub.add_parser("print-config", help="print the resolved config")
     pc.add_argument("config")
@@ -41,12 +48,17 @@ def main(argv=None) -> int:
         print()
         return 0
 
-    if cfg.sampler.algorithm == "smc":
-        from mceik_tpu_torch.samplers.smc import run_smc_config
-        run_smc_config(cfg, device=args.device)
-    else:
-        from mceik_tpu_torch.api import run
-        run(cfg, device=args.device)
+    import torch.distributed as dist
+    try:
+        if cfg.sampler.algorithm == "smc":
+            from mceik_tpu_torch.samplers.smc import run_smc_config
+            run_smc_config(cfg, device=args.device, backend=args.backend)
+        else:
+            from mceik_tpu_torch.api import run
+            run(cfg, device=args.device, backend=args.backend)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

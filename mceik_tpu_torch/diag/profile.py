@@ -219,7 +219,7 @@ def _profile_mcmc(cfg, args, path):
 def _profile_smc(cfg, args, path):
     from mceik_tpu_torch.samplers import smc
 
-    post, gen = smc.setup(cfg, "cuda")
+    post, gen, _ = smc.setup(cfg, "cuda")
     scfg = cfg.sampler
     n, k = scfg.n_particles, scfg.n_mutation_steps
     target = scfg.ess_threshold * n

@@ -1,9 +1,15 @@
-"""Systematic resampling of a particle population on one device.
+"""Systematic resampling of a particle population, sharded or not.
 
-Counterpart of ``mceik_tpu/dist/resample.py`` without the sharding: the
-indices come from globally normalised weights and one shared uniform offset,
-and the population is gathered by them. The uniform is an argument (a
-tensor), so a test can hand in JAX's draw.
+Counterpart of ``mceik_tpu/dist/resample.py``: the indices come from
+globally normalised weights and one shared uniform offset, and the
+population is gathered by them. The uniform is an argument (a tensor), so a
+test can hand in JAX's draw.
+
+Sharded over ranks (a ``mesh``, ``dist/mesh.py``) each rank holds its rows
+of the population: the indices and the ESS take the global log-weights
+(all-gathered by the caller, ``samplers/smc.py``), so every rank computes
+the same indices from the same uniform; :func:`resample_tree` all-gathers
+the population and each rank keeps the rows its share of the indices picks.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from typing import Any
 
 import torch
 
+from mceik_tpu_torch.dist.mesh import Mesh, gather_chains
 from mceik_tpu_torch.utils import tree_map
 
 
@@ -29,8 +36,13 @@ def systematic_indices(log_weights: torch.Tensor,
     return torch.clamp(torch.searchsorted(cdf, positions), 0, n - 1)
 
 
-def resample_tree(tree: Any, indices: torch.Tensor) -> Any:
-    """Gather every leaf's leading (particle) axis by ``indices``."""
+def resample_tree(tree: Any, indices: torch.Tensor,
+                  mesh: Mesh = Mesh()) -> Any:
+    """Gather every leaf's leading (particle) axis by the global
+    ``indices``; sharded, this rank's rows of the result."""
+    if mesh.sharded:
+        lo, hi = mesh.rows(indices.shape[0])
+        tree, indices = gather_chains(tree, mesh), indices[lo:hi]
     return tree_map(lambda x: x[indices], tree)
 
 

@@ -9,6 +9,13 @@ runner draws ``normal`` (a tree like the params) and ``uniform`` (one per
 chain) from its generator; a kernel with other draws carries its own
 ``kernel.draw(gen, state)`` (HMC, NUTS). So a test can hand a kernel JAX's
 draws instead.
+
+Sharded over ranks (a ``mesh``, ``dist/mesh.py``) each rank holds its rows of
+the chain batch. Every rank draws the whole batch's random numbers from its
+generator, seeded as the others, and keeps its own rows; the pooled
+acceptance is the mean over every rank's chains, the adapter sees every
+rank's chains, and the traces come back gathered. So a sharded run takes the
+unsharded run's steps.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from mceik_tpu_torch.diag.moments import Welford, welford_init, welford_update
+from mceik_tpu_torch.dist.mesh import Mesh, all_gather0, draw_rows, gather_chains
 from mceik_tpu_torch.utils import tree_map, tree_random_normal
 
 
@@ -41,6 +49,8 @@ class MCMCResult:
     # Every per-chain info entry of the kernel (accept_prob, divergent,
     # tree_depth, ...) averaged over each thinning interval: (n_collect, C).
     info_trace: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # Sharded: ``states`` and ``welford`` hold this rank's chains, the
+    # traces and samples every rank's.
 
 
 def init_chain_states(logpost_fn: Callable, init_params_fn: Callable,
@@ -59,11 +69,10 @@ def draw_normal_uniform(gen: torch.Generator, states: MHState):
     return normal, uniform
 
 
-def _one_step(kernel, states: MHState, hyper, gen: torch.Generator):
+def _one_step(kernel, states: MHState, hyper, gen: torch.Generator,
+              mesh: Mesh):
     draw = getattr(kernel, "draw", draw_normal_uniform)
-    states, info = kernel(states, hyper, *draw(gen, states))
-    pooled = {k: v.mean(0) for k, v in info.items()}
-    return states, info, pooled
+    return kernel(states, hyper, *draw_rows(draw, gen, states, mesh))
 
 
 def _stack(trees):
@@ -76,7 +85,8 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
              track_fn: Optional[Callable] = None,
              finalize_fn: Optional[Callable] = None,
              collect_fn: Optional[Callable] = None,
-             init_welford: Optional[Welford] = None) -> MCMCResult:
+             init_welford: Optional[Welford] = None,
+             mesh: Mesh = Mesh()) -> MCMCResult:
     """Run warmup (with adaptation) then sampling (with collection).
 
     kernel:      (state, hyper, *draws) -> (state, info); info holds
@@ -88,6 +98,9 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
                  track_fn).
     finalize_fn: hyper -> hyper, applied once after warmup.
     init_welford: the previous segment's accumulator, for segmented runs.
+    mesh:        the ranks the chains are sharded over (``init_states``
+                 holds this rank's rows); the adapter gets every rank's
+                 chains.
     """
     if track_fn is None:
         track_fn = lambda p: p
@@ -96,9 +109,11 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
 
     states, hyper = init_states, init_hyper
     for t in range(n_warmup):
-        states, _, pooled = _one_step(kernel, states, hyper, gen)
+        states, info = _one_step(kernel, states, hyper, gen, mesh)
         if adapt_fn is not None:
-            hyper = adapt_fn(hyper, pooled, states, t)
+            # Pooled over every rank's chains.
+            pooled = {k: all_gather0(v, mesh).mean(0) for k, v in info.items()}
+            hyper = adapt_fn(hyper, pooled, gather_chains(states, mesh), t)
     if finalize_fn is not None:
         hyper = finalize_fn(hyper)
 
@@ -112,7 +127,7 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
     for _ in range(n_steps // thin):
         sums = None
         for _ in range(thin):
-            states, info, _ = _one_step(kernel, states, hyper, gen)
+            states, info = _one_step(kernel, states, hyper, gen, mesh)
             welford = welford_update(welford, track_fn(states.params))
             sums = info if sums is None else {k: sums[k] + v
                                               for k, v in info.items()}
@@ -121,12 +136,16 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
         infos.append({k: v / thin for k, v in sums.items()})
 
     dev = states.logpost.device
-    empty = torch.zeros((0, n_chains), dtype=torch.float32, device=dev)
+    empty = torch.zeros((0, n_chains * mesh.world), dtype=torch.float32,
+                        device=dev)
+    # The traces of every rank's chains: (n_collect, C) on every rank.
+    gather1 = lambda x: all_gather0(x.movedim(1, 0), mesh).movedim(0, 1)
     info_trace = _stack(infos) if infos else {}
+    info_trace = {k: gather1(v) for k, v in info_trace.items()}
     return MCMCResult(
         states=states, hyper=hyper, welford=welford,
-        samples=_stack(draws) if draws else None,
-        logpost_trace=torch.stack(lps) if lps else empty,
+        samples=tree_map(gather1, _stack(draws)) if draws else None,
+        logpost_trace=gather1(torch.stack(lps)) if lps else empty,
         accept_trace=info_trace.get("accept_prob", empty),
         info_trace=info_trace,
     )

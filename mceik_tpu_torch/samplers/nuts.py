@@ -26,7 +26,9 @@ chain (vmap cannot stop early). Once every chain has stopped, later
 doublings change nothing, and once every chain's subtree has gone inactive
 (one leaf past its turn or divergence, which can still flag divergence)
 later leaves change nothing; the port ends those loops there, at one host
-sync per leaf. The results equal the full budget's.
+sync per leaf. The results equal the full budget's. With the chains
+sharded over ranks (``mesh``) both exits are decided over every rank's
+chains, so that the ranks leave their loops together.
 
 Step size and mass adaptation are hmc.py's (``hmc.make_adapter``,
 ``hmc.finalize``). The kernel takes its draws as tensors (``draw`` below):
@@ -41,6 +43,7 @@ from typing import Any, Callable
 
 import torch
 
+from mceik_tpu_torch.dist.mesh import Mesh, any_rank
 from mceik_tpu_torch.model.posterior import value_and_grad
 from mceik_tpu_torch.samplers.am_full import _ravel, _unravel_fn
 from mceik_tpu_torch.samplers.base import MHState
@@ -58,12 +61,14 @@ def _where(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def make_kernel(logpost_fn: Callable, max_tree_depth: int = 6,
-                divergence_threshold: float = 1000.0) -> Callable:
+                divergence_threshold: float = 1000.0,
+                mesh: Mesh = Mesh()) -> Callable:
     """NUTS transition over all chains: ``(state, hyper, normal, go_right,
     u_accept, u_leaf) -> (state, info)`` with ``go_right`` ``(C, depth)``
     bool, ``u_accept`` ``(C, depth)`` and ``u_leaf`` ``(C, 2^depth - 1)``
     (doubling ``d``'s leaves at ``2^d - 1 + i``). ``logpost_fn`` is built
-    with ``differentiable=True``."""
+    with ``differentiable=True``; ``mesh`` is the ranks the chains are
+    sharded over."""
     vag_tree = value_and_grad(logpost_fn)
     n_leaf_draws = 2 ** max_tree_depth - 1
 
@@ -106,7 +111,7 @@ def make_kernel(logpost_fn: Callable, max_tree_depth: int = 6,
         depth_reached = torch.zeros(C, dtype=torch.int64, device=dev)
 
         for depth in range(max_tree_depth):
-            if bool(stopped.all()):
+            if not any_rank(~stopped.all(), mesh):
                 break                    # later doublings change nothing
             right = go_right[:, depth]
             step = _col(torch.where(right, 1.0, -1.0) * eps)
@@ -163,7 +168,7 @@ def make_kernel(logpost_fn: Callable, max_tree_depth: int = 6,
                 sub_div = sub_div | div_n
                 # A chain inactive at this leaf's start has computed its one
                 # leaf past the turn; the rest would repeat it.
-                if not bool((was_active & active).any()):
+                if not any_rank((was_active & active).any(), mesh):
                     break
 
             # The subtree counts only if the whole doubling is clean and

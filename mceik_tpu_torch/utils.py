@@ -1,7 +1,7 @@
 """Tree helpers over parameter containers (``Params``, dicts of tensors).
 
-Counterpart of ``mceik_tpu/utils.py``. A tree is a tensor, a dict of
-trees or a dataclass of trees; ``None`` leaves are skipped, as in a JAX
+Counterpart of ``mceik_tpu/utils.py``. A tree is a tensor, a dict, tuple
+or list of trees or a dataclass of trees; ``None`` leaves are skipped, as in a JAX
 pytree. Trees of chain states carry a leading chain axis on every leaf.
 """
 
@@ -22,6 +22,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
             f.name: tree_map(fn, getattr(tree, f.name),

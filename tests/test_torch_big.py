@@ -44,6 +44,17 @@ from mceik_tpu_torch.forward.predict import traveltime_tables
 from mceik_tpu_torch.grid import Grid
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _smooth_slowness(shape, seed, amp=0.3):
     """A smooth positive field: coarse normals, trilinear-upsampled."""
     rng = np.random.default_rng(seed)

@@ -22,6 +22,18 @@ from mceik_tpu_torch import cli
 from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.io import config_io as tio
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
 C2 = os.path.join(REPO, "configs", "c2_checkerboard3d.json")
@@ -71,7 +83,10 @@ def test_package_imports_without_jax():
             "mceik_tpu_torch.model.whitened, mceik_tpu_torch.diag.profile, "
             "mceik_tpu_torch.forward.locate, "
             "mceik_tpu_torch.forward.tables_cache, "
-            "mceik_tpu_torch.io.loaders, mceik_tpu_torch.io.checkpoint\n"
+            "mceik_tpu_torch.io.loaders, mceik_tpu_torch.io.checkpoint, "
+            "mceik_tpu_torch.io.trace, mceik_tpu_torch.dist.mesh, "
+            "mceik_tpu_torch.dist.dryrun, mceik_tpu_torch.eikonal.dist_sweep, "
+            "mceik_tpu_torch.forward.reshard\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mceik_tpu'))\n"
             "print(bad)\n")
@@ -134,17 +149,24 @@ def test_cli_runs_tiny_c2_mala_on_cpu(capsys):
     assert any(x.startswith("[mceik-tpu-torch] mala chains=2") for x in lines)
 
 
-def test_cli_refuses_missing_card_and_later_slices():
+def test_cli_refuses_missing_card_and_later_slices(tmp_path, monkeypatch):
     """The default device is cuda: with no card the run fails loudly
-    instead of falling back to the CPU. Features not ported yet raise
-    (profiling, more than one device), and so does locate mode over a tomo
-    dataset, which has no stations to locate against."""
+    instead of falling back to the CPU. ``dist.n_devices=2`` without a
+    multi-process launcher warns and runs as one process; ``io.profile_dir``
+    writes a ``torch.profiler`` trace of the second segment; locate mode
+    over a tomo dataset, which has no stations to locate against, raises."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["run", C2, *TINY])
-    with pytest.raises(NotImplementedError, match="profil.*not ported"):
-        cli.main(["run", C2, *TINY, "io.profile_dir=prof", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["run", C2, *TINY, "dist.n_devices=2", "--device", "cpu"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.warns(UserWarning, match="one process"):
+        assert cli.main(["run", C2, *TINY, "dist.n_devices=2",
+                         "--device", "cpu"]) == 0
+    prof = tmp_path / "prof"
+    assert cli.main(["run", C2, *TINY, f"io.profile_dir={prof}",
+                     "--device", "cpu"]) == 0
+    with open(prof / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
     with pytest.raises(TypeError, match="locate mode needs EventData"):
         cli.main(["run", C2, *TINY, "model.mode=locate", "--device", "cpu"])

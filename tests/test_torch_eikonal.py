@@ -32,6 +32,17 @@ from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
 from mceik_tpu_torch.grid import Grid
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _slowness(rng, shape, amp=0.3, coarse=4):
     """Smooth positive slowness: a coarse normal field upsampled linearly."""
     c = rng.standard_normal((coarse,) * len(shape))

@@ -27,6 +27,17 @@ from mceik_tpu_torch.grid import Grid
 from mceik_tpu_torch.model.params import slowness_from_u
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("inv_shape,shape", [((4, 4, 4), (16, 12, 16)),
                                              ((4, 5), (25, 17))])
 def test_slowness_from_u_matches_jax(inv_shape, shape):

@@ -33,6 +33,18 @@ from mceik_tpu_torch.samplers import am_full, mala
 from mceik_tpu_torch.samplers.am_full import _ravel, _unravel_fn
 from mceik_tpu_torch.samplers.base import init_chain_states, run_mcmc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.slow
 
 

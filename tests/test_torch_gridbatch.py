@@ -31,6 +31,18 @@ from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
                                            source_scalars, sweep_cycle_plain)
 from mceik_tpu_torch.grid import Grid
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GRID = Grid((16, 12, 16), (1.0, 1.0, 1.0))
 
 

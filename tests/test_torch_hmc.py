@@ -38,6 +38,18 @@ from mceik_tpu_torch.model.posterior import build_posterior
 from mceik_tpu_torch.samplers import hmc, nuts, pcn
 from mceik_tpu_torch.samplers.base import MHState
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C = 4
 D_GAUSS = 5
 PREC = np.diag(np.linspace(1.0, 30.0, D_GAUSS)).astype(np.float32)

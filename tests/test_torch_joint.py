@@ -48,6 +48,18 @@ from mceik_tpu_torch.model.posterior import build_posterior, value_and_grad
 from mceik_tpu_torch.model.whitened import whitened_view
 from mceik_tpu_torch.samplers.am_full import _ravel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C3 = os.path.join(REPO, "configs", "c3_joint_events.json")
 # test_nuts_joint.py's problem: 13x13x9 grid, 3x3x2 basis, 2 events, 5

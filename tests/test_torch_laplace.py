@@ -30,6 +30,18 @@ from mceik_tpu_torch.model import laplace
 from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.model.posterior import build_posterior
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPE = (12, 12, 12)
 INV = (3, 3, 3)
 

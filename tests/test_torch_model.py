@@ -35,6 +35,18 @@ from mceik_tpu_torch.samplers import am
 from mceik_tpu_torch.samplers.base import MHState
 from mceik_tpu_torch.samplers.hmc import DualAveraging, dual_averaging_update
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPE = (16, 16, 16)
 INV = (4, 4, 4)
 N_CHAINS = 3

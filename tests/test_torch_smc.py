@@ -39,6 +39,7 @@ from mceik_tpu_torch.datasets import synthetic as tsyn
 from mceik_tpu_torch.diag.ess import split_rhat
 from mceik_tpu_torch.diag.moments import welford_finalize, welford_merge_chains
 from mceik_tpu_torch.dist import resample as tres
+from mceik_tpu_torch.dist.mesh import Mesh
 from mceik_tpu_torch.eikonal.solve import EikonalConfig
 from mceik_tpu_torch.forward.predict import predict_tomo
 from mceik_tpu_torch.grid import Grid
@@ -47,6 +48,18 @@ from mceik_tpu_torch.model.params import Params
 from mceik_tpu_torch.model.posterior import build_posterior
 from mceik_tpu_torch.samplers import rwm, smc
 from mceik_tpu_torch.samplers.base import MHState, init_chain_states, run_mcmc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (24, 24)
@@ -369,7 +382,7 @@ def test_mutate_replays_jax_draws_on_tomo_posterior(models):
     assert abs(float(tacc) - float(jacc)) <= bar / 0.3 + 1e-6
 
 
-def test_smc_gaussian_moments_and_evidence():
+def test_smc_gaussian_moments_and_evidence(tmp_path):
     """The port of tests/test_smc.py at its own bars: 2048 particles on the
     conjugate toy; posterior mean within 0.08, variance within 25%, log Z
     within 0.15 of the closed form, beta reaching 1 after at least two
@@ -391,12 +404,21 @@ def test_smc_gaussian_moments_and_evidence():
     assert result.n_stages >= 2
     assert min(result.accept_history) > 0.1
     assert len(result.stage_seconds) == result.n_stages
-    with pytest.raises(NotImplementedError, match="mesh is not ported yet"):
-        smc.run_smc(TToy(), gen, 64, mesh=object())
-    with pytest.raises(NotImplementedError, match="profil.*not ported"):
-        smc.run_smc_config(apply_overrides(load_config(os.path.join(
-            REPO, "configs", "c4_smc.json")), ["io.profile_dir=prof"]),
-            device="cpu")
+    # A mesh of one process (no process group) runs the unsharded ladder.
+    one = smc.run_smc(TToy(), torch.Generator().manual_seed(0), 64,
+                      mesh=Mesh())
+    alone = smc.run_smc(TToy(), torch.Generator().manual_seed(0), 64)
+    assert one.betas == alone.betas
+    assert torch.equal(one.state.params, alone.state.params)
+    # io.profile_dir: a torch.profiler trace of the second stage.
+    prof = tmp_path / "prof"
+    smc.run_smc_config(apply_overrides(load_config(os.path.join(
+        REPO, "configs", "c4_smc.json")), SMALL + [
+            "sampler.n_particles=32", "sampler.n_mutation_steps=1",
+            f"io.profile_dir={prof}"]), device="cpu", verbose=False,
+        max_stages=2)
+    with open(prof / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
 
 
 # --- configs 1 and 4 through the CLI ---------------------------------------

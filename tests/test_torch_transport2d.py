@@ -48,6 +48,18 @@ from mceik_tpu_torch.model.posterior import build_posterior, value_and_grad
 from mceik_tpu_torch.samplers import hmc
 from mceik_tpu_torch.samplers.base import init_chain_states, run_mcmc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain CPU solves here are thousands of tiny ops on small grids:
+    one intra-op thread runs them as fast, and keeps them from contending
+    with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C1_SHAPE = (17, 17)
 C1_INV = (4, 4)
 N_CHAINS = 3
