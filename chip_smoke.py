@@ -182,7 +182,37 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the host staging), each helper's result equal to its input, with ms
    per collective;
 31. the port's dryrun (legs A-E) on the 2 ranks on the card: every leg
-   against its unsharded run, each rank's launches printed.
+   against its unsharded run, each rank's launches printed;
+32. the C++ serial fast-sweeping oracle (``mceik_tpu_torch.native``,
+   ``native/fsm.cc`` built by g++) against the kernels' solves at tol 1e-6
+   (``fsm_solve`` at tol 1e-8; bar: atol 2e-3, tests/test_native.py's): K3
+   on one field (its block route) of (33, 29) and of the anisotropic
+   (25, 19) grid with origin (1, -2), K1 on (17, 15, 13) and on one c2
+   field of 64^3; the FSM's passes and both times printed;
+33. the Jacobi solve on the card: (a) on the main-path batch (128 fields
+   of 64^3) at tol 1e-6 against K1's solve at tol 1e-6 (bar: atol 5e-4,
+   tests/test_eikonal.py's; no kernel launched; its passes and wall
+   printed), (b) the c2 AM path through ``mceik_tpu_torch.cli.main`` with
+   ``eikonal.method=jacobi eikonal.max_iters=400`` at 16 chains, depth cut
+   to 4 + 4 steps, counts reset and read: K1 launched exactly as often as
+   the data's own solve (the default sweep config) takes when the dataset
+   is made alone, so the chain steps launched none; logposts finite and
+   rising;
+34. the sanity tool ``mceik_tpu_torch.diag.sanity`` (the counterpart of
+   tools/tpu_sanity.py): every batched forward route on 64 fields of 64^3
+   (and K3's two routes on 64 fields of 64^2) against a tight plain solve
+   at the reference's bar 5e-2, every transport route (K4, K5 forced, K6)
+   against the plain transport solve (bar 1e-5 of max), each with its
+   launches; every row OK, with ms per batch;
+35. each golden problem's posterior on the card (the kernels) against
+   the CPU's (the plain solves) at the golden's mean and MAP (bar: rtol
+   2e-5), the MALA problems' 8-chain gradient the same bits on a second
+   call, then the golden checks (``mceik_tpu_torch.diag.golden``) of all
+   four problems through the kernels (``use_pallas`` "on"), at the reference's
+   check budgets, seeds and bars (max |z| < 3.5, median < 1.5, acceptance
+   > 0.05, median ESS > 20, c1_small's recovery correlation > 0.5):
+   c1_small through K3 alone, c2_small through K1 alone, c2_mid and
+   c3_joint_small through K1 and K4.
 
 The line before the last is a JSON object listing the kernels' entries
 with their launch counts (K1 and K4 on the MALA path, K3 on the SMC path,
@@ -195,7 +225,9 @@ the resumed AM and MALA runs, K4's on the resumed MALA run, K3's warp
 route's on the resumed SMC ladder, K5's time forced on config 2's batch, K3's config-1 times, K6's
 config-1 MALA count and config-4 times; each rank's K1 launches on the
 sharded AM run, the sharded tables and the dryrun, K3's warp launches on
-the sharded SMC ladder), errors, times and bounds (the
+the sharded SMC ladder; K1's, K3's and K4's launches in the golden checks,
+K1's launches on the Jacobi run and on its data's solve, the FSM oracle's
+largest difference), errors, times and bounds (the
 larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 counted from each kernel's source at the shapes timed; a solve's bound
 moves its bytes once and does the operations of every cycle its fields
@@ -270,6 +302,11 @@ C1_NUTS_ARGS = ["sampler.algorithm=nuts", "sampler.n_warmup=30",
 C1_MALA_ARGS = ["sampler.algorithm=mala", "sampler.n_map_steps=40",
                 "sampler.n_warmup=30", "sampler.n_samples=60",
                 "sampler.thin=1", "io.log_every=30"]
+
+# c2_checkerboard3d.json at 16 chains under eikonal.method=jacobi (and
+# max_iters 400); depth cut to 4 warmup and 4 sampling steps.
+JACOBI_ARGS = ["sampler.n_chains=16", "sampler.n_warmup=4",
+               "sampler.n_samples=4", "sampler.thin=1", "io.log_every=2"]
 
 # The card's peaks (H100 SXM data sheet, at 700 W): fp32 outside the tensor
 # cores and HBM bandwidth.
@@ -582,6 +619,216 @@ def _check_run(recs, label, n_warm, n_chains=N_CHAINS):
         rate_last = ((samp[-1]["step"] - samp[-2]["step"]) * n_chains
                      / (samp[-1]["t"] - samp[-2]["t"]))
     return init[0], samp, steps, rate_all, rate_last
+
+
+def _smooth_slowness(grid, seed, amp=0.3):
+    """tests/test_native.py's medium with numpy's draw: exp of a 5^D
+    normal field upsampled linearly."""
+    import numpy as np
+    import torch
+
+    from mceik_tpu_torch.model.params import slowness_from_u
+    u = np.random.default_rng(seed).standard_normal((5,) * grid.ndim)
+    return slowness_from_u(torch.tensor(amp * u, dtype=torch.float32),
+                           grid, torch.tensor(1.0))
+
+
+def _phases_32_35(dev, cli, s_true, src, s_a, srcs_a):
+    """Phases 32-35: the FSM oracle against K3 and K1, the Jacobi solve on
+    the card (against K1, and the c2 AM path under ``eikonal.method=
+    jacobi``), the sanity tool, and the golden checks through the kernels.
+    Raises on a failed bar; returns what the kernel line reports."""
+    import torch
+
+    from mceik_tpu_torch.datasets import make_dataset
+    from mceik_tpu_torch.diag import golden, profile, sanity
+    from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
+    from mceik_tpu_torch.eikonal.solve import EikonalConfig
+    from mceik_tpu_torch.grid import Grid
+    from mceik_tpu_torch.io.config_io import apply_overrides, load_config
+    from mceik_tpu_torch.native import fsm_solve
+
+    kernels = profile.kernels()
+    k1, k3 = kernels["sweep3d_cycle"], kernels["sweep2d"]
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+            if hasattr(k, "block_launches"):
+                k.block_launches = 0
+
+    def launched():
+        return {n: c for n, c in profile.counts().items()
+                if c and not n.endswith("_field_cycles")}
+
+    out = {}
+    # 32. The FSM oracle against the kernels: K3 (one field, the block
+    # route) and K1, each solve at tol 1e-6 against fsm_solve at tol 1e-8.
+    t32 = time.perf_counter()
+    c2_grid = Grid(tuple(s_true.shape), (1.0, 1.0, 1.0))
+    cases = [
+        ("K3 (33, 29)", Grid((33, 29), (1.0, 1.0)), None, [3.0, 3.0]),
+        ("K3 (25, 19) anisotropic", Grid((25, 19), (0.5, 1.0), (1.0, -2.0)),
+         "ones", [6.0, 5.0]),
+        ("K1 (17, 15, 13)", Grid((17, 15, 13), (1.0, 1.0, 1.0)), None,
+         [3.0, 3.0, 3.0]),
+        ("K1 c2 field 64^3", c2_grid, s_true, src[0].tolist()),
+    ]
+    cfg32 = EikonalConfig(tol=1e-6, max_iters=200)
+    oracle = []
+    for label, g, s_spec, x in cases:
+        if s_spec is None:
+            s = _smooth_slowness(g, 5)
+        elif isinstance(s_spec, str):
+            s = torch.ones(g.shape)
+        else:
+            s = s_spec.detach().cpu()
+        reset()
+        t0 = time.perf_counter()
+        T_k = solve_eikonal_batched(s.to(dev)[None], torch.tensor(
+            [x], dtype=torch.float32, device=dev), g, cfg32)[0]
+        torch.cuda.synchronize()
+        ms_k = (time.perf_counter() - t0) * 1e3
+        counts = launched()
+        t0 = time.perf_counter()
+        T_f, passes = fsm_solve(s, x, g, tol=1e-8, max_passes=100)
+        ms_f = (time.perf_counter() - t0) * 1e3
+        diff = float((T_k.cpu() - torch.from_numpy(T_f)).abs().max())
+        kernel = "sweep2d" if g.ndim == 2 else "sweep3d_cycle"
+        ok = (diff <= 2e-3 and counts.get(kernel, 0) > 0
+              and (g.ndim == 3 or counts.get("sweep2d_block_launches", 0)))
+        print(f"phase 32, FSM oracle, {label}: max|kernel-FSM| = {diff:.3e} "
+              f"(bar 2e-3); FSM {passes} passes in {ms_f:.1f} ms, the "
+              f"kernel's solve {ms_k:.1f} ms; launches {counts}")
+        if not ok:
+            raise RuntimeError(f"phase 32 ({label}): {diff} or {counts}")
+        oracle.append({"case": label, "max_abs_diff": diff, "passes": passes,
+                       "fsm_ms": ms_f, "kernel_ms": ms_k})
+    out["oracle"] = oracle
+    print(f"phase 32 wall {time.perf_counter() - t32:.1f} s")
+
+    # 33 (a). Jacobi on c2's main-path batch (128 fields of 64^3) against
+    # K1's solve, both at tol 1e-6 (the bar of tests/test_eikonal.py).
+    reset()
+    t0 = time.perf_counter()
+    T_j, iters = _jacobi_with_iters(s_a, srcs_a, c2_grid)
+    torch.cuda.synchronize()
+    wall_j = time.perf_counter() - t0
+    jac_counts = launched()
+    T_s = solve_eikonal_batched(s_a, srcs_a, c2_grid, EikonalConfig(
+        tol=1e-6, max_iters=200))
+    diff = float((T_j - T_s).abs().max())
+    print(f"phase 33 (a): Jacobi on {s_a.shape[0]} fields of 64^3 at tol "
+          f"1e-6: {int(iters.max())} passes (per field {int(iters.min())}-"
+          f"{int(iters.max())}) in {wall_j:.2f} s; max|Jacobi-K1| = "
+          f"{diff:.3e} (bar 5e-4); launches in the Jacobi solve "
+          f"{jac_counts}")
+    if diff > 5e-4 or jac_counts or not bool(torch.isfinite(T_j).all()):
+        raise RuntimeError(f"phase 33 (a): Jacobi vs K1 {diff}, launches "
+                           f"{jac_counts}")
+    out["jacobi"] = {"passes": int(iters.max()), "seconds": wall_j,
+                     "max_abs_diff_k1": diff}
+
+    # 33 (b). The c2 AM path through the CLI with eikonal.method=jacobi: the
+    # chain steps launch no K1 (the data's solve, with the default sweep
+    # config, is K1's alone; measured by making the dataset alone first).
+    over = ["eikonal.method=jacobi", "eikonal.max_iters=400", *JACOBI_ARGS]
+    cfg_j = apply_overrides(load_config(AM_CONFIG), over)
+    reset()
+    make_dataset(cfg_j.grid.build(), cfg_j.data, cfg_j.model, device=dev)
+    data_launches = launched()
+    reset()
+    recs, _, wall = _run_cli(cli, ["run", AM_CONFIG, *over])
+    run_launches = launched()
+    init, samp, steps, rate, _ = _check_run(recs, "phase 33 (b)",
+                                            cfg_j.sampler.n_warmup)
+    print(f"phase 33 (b): c2 AM under Jacobi, {steps} steps at 16 chains in "
+          f"{wall:.1f} s ({rate:.2f} chain-steps/s); logpost "
+          f"{init['logpost_mean']} -> {samp[-1]['logpost_mean']}; launches "
+          f"{run_launches}, the data's solve alone {data_launches}")
+    if (run_launches != data_launches
+            or not samp[-1]["logpost_mean"] > init["logpost_mean"]):
+        raise RuntimeError(f"phase 33 (b): launches {run_launches} vs the "
+                           f"data's {data_launches}, or logpost not rising")
+    out["jacobi_cli"] = {"launches": run_launches, "data": data_launches,
+                         "chain_steps_per_s": rate}
+
+    # 34. The sanity tool: every route OK.
+    t34 = time.perf_counter()
+    rows = sanity.run()
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError(f"phase 34: BAD routes "
+                           f"{[r['route'] for r in rows if not r['ok']]}")
+    out["sanity"] = {r["route"]: r["ms"] for r in rows}
+    print(f"phase 34: {len(rows)} routes OK in "
+          f"{time.perf_counter() - t34:.1f} s")
+
+    # 35. The golden checks through the kernels at the reference's budgets
+    # and bars; first each problem's posterior on the card (the kernels)
+    # against the CPU's (the plain solves) at the golden's points (bar:
+    # rtol 2e-5, tests/test_torch_golden.py's against JAX), and the MALA
+    # problems' gradient on the card the same bits on a second call.
+    from mceik_tpu_torch.model.posterior import value_and_grad
+    from mceik_tpu_torch.samplers.am_full import _unravel_fn
+    t35 = time.perf_counter()
+    post_rel, grad_same = {}, {}
+    for name in golden.PROBLEMS:
+        art = golden.load_golden(name)
+        pts = [art["mean"]] + ([art["proposal"]["x_map"]]
+                               if "x_map" in art["proposal"] else [])
+        x = torch.tensor(pts, dtype=torch.float32)
+        lps = []
+        for d, route in ((dev, "on"), (torch.device("cpu"), "off")):
+            post = golden._build(name, d, route)
+            unravel = _unravel_fn(post.init_params(
+                torch.Generator(device=d).manual_seed(0), 1), batch_dims=1)
+            lps.append(post.logpost(unravel(x.to(d))).double().cpu())
+            if d.type == "cuda" and golden._is_mala(name):
+                p8 = post.init_params(torch.Generator(device=d).manual_seed(1),
+                                      8)
+                vag = value_and_grad(post.logpost)
+                g1, g2 = vag(p8)[1], vag(p8)[1]
+                grad_same[name] = all(
+                    torch.equal(a, b) for a, b in zip(
+                        (g1.u, g1.hypo_raw), (g2.u, g2.hypo_raw))
+                    if a is not None)
+        post_rel[name] = float(((lps[0] - lps[1]).abs()
+                                / lps[1].abs()).max())
+    print(f"phase 35: logpost on the card (kernels) against the CPU (plain) "
+          f"at the golden points, max relative difference {post_rel} (bar "
+          f"2e-5); the MALA problems' 8-chain gradient the same bits on a "
+          f"second call {grad_same}")
+    if max(post_rel.values()) > 2e-5 or not all(grad_same.values()):
+        raise RuntimeError(f"phase 35: posterior {post_rel}, gradient "
+                           f"reproducible {grad_same}")
+    results = golden.check(list(golden.PROBLEMS), dev, "on")
+    expect = {"c1_small": {"sweep2d"}, "c2_small": {"sweep3d_cycle"},
+              "c2_mid": {"sweep3d_cycle", "transport3d_cycle"},
+              "c3_joint_small": {"sweep3d_cycle", "transport3d_cycle"}}
+    kinds = ("sweep3d_cycle", "sweep2d", "transport3d_cycle",
+             "transport3d_large_cycle", "transport2d")
+    for r in results:
+        ran = {k for k in kinds if r["launches"][k]}
+        if not r["ok"] or ran != expect[r["problem"]]:
+            raise RuntimeError(f"phase 35 ({r['problem']}): bars "
+                               f"{r['bars']}, kernels {ran}")
+    out["posterior_rel"] = post_rel
+    out["golden"] = {r["problem"]: {
+        "launches": {k: r["launches"][k] for k in kinds if r["launches"][k]},
+        "seconds": r["seconds"],
+        **{b: v for b, (v, _) in r["bars"].items()}} for r in results}
+    print(f"phase 35: the four goldens within the bars through the kernels "
+          f"in {time.perf_counter() - t35:.1f} s")
+    return out
+
+
+def _jacobi_with_iters(s, srcs, grid):
+    """The Jacobi solve at tol 1e-6 and ``max_iters`` 2000, with each
+    field's pass count."""
+    from mceik_tpu_torch.eikonal.solve import jacobi_solve, seed_source
+    T0, frozen = seed_source(s, srcs, grid, 3.0)
+    return jacobi_solve(T0, frozen, s, grid.spacing, 1e-6, 2000,
+                        return_cycles=True)
 
 
 def main() -> int:
@@ -2111,6 +2358,14 @@ def main() -> int:
         raise RuntimeError("phase 31: the dryrun failed")
     print(f"phases 27-31 (distribution) wall "
           f"{time.perf_counter() - t_dist:.1f} s")
+
+    # 32-35. The FSM oracle, the Jacobi solve, the sanity tool and the
+    # golden checks on the card.
+    t_new = time.perf_counter()
+    torch.cuda.empty_cache()
+    new = _phases_32_35(dev, cli, s_true, src, s_a, srcs_a)
+    print(f"phases 32-35 wall {time.perf_counter() - t_new:.1f} s")
+    gl = new["golden"]
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # Bounds at the shapes timed: one cycle of the batch (every field
@@ -2160,6 +2415,15 @@ def main() -> int:
         "dist_am_rank_launches": am_rank_launches,
         "dist_tables_rank_launches": tables_rank_launches,
         "dryrun_rank_launches": [r["sweep3d"] for r in rank31],
+        "golden_launches": {n: gl[n]["launches"]["sweep3d_cycle"]
+                            for n in ("c2_small", "c2_mid",
+                                      "c3_joint_small")},
+        "fsm_oracle_max_abs_diff": max(c["max_abs_diff"]
+                                       for c in new["oracle"]),
+        "jacobi_run_launches": new["jacobi_cli"]["launches"].get(
+            "sweep3d_cycle", 0),
+        "jacobi_data_solve_launches": new["jacobi_cli"]["data"].get(
+            "sweep3d_cycle", 0),
     }, {
         "name": "transport3d_cycle",
         "route": "cuda",
@@ -2174,6 +2438,8 @@ def main() -> int:
         "library_ms": None,
         "c3_launches": nuts_launches["transport3d_cycle"],
         "mala_resume_launches": mala_res_launches["transport3d_cycle"],
+        "golden_launches": {n: gl[n]["launches"]["transport3d_cycle"]
+                            for n in ("c2_mid", "c3_joint_small")},
         "c3_ms": ms_k4_c3,
         "c3_plain_ms": ms_k4_c3_plain,
         "c3_bound_ms": b_k4_c3,
@@ -2256,6 +2522,7 @@ def main() -> int:
         "library_ms": None,
         "solve_field_cycles": k3_cycles_c1,
         "c1_mala_launches": c1_mala_launches["sweep2d_block"],
+        "golden_c1_small_launches": gl["c1_small"]["launches"]["sweep2d"],
         "c4_ms": k3_c4["block"][1],
         "c4_plain_ms": ms_k3s_plain,
         "c4_bound_ms": b_k3s,

@@ -6,7 +6,8 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
 ``mceik_tpu_torch/eikonal/solve.py``) and is tested against it on the CPU.
 
 - ``eikonal``  — Godunov local solver, plain plane-sweep solve (the CPU path
-  and the kernels' reference), the hand-written CUDA sweep kernels, 3-D
+  and the kernels' reference), the plain Jacobi solve
+  (``method="jacobi"``), the hand-written CUDA sweep kernels, 3-D
   (``eikonal/cuda_sweep.py`` + ``csrc/sweep3d.cu``) and 2-D
   (``eikonal/cuda_sweep2d.py`` + ``csrc/sweep2d.cu``), and the batched entry;
   the differentiable solve through the implicit adjoint
@@ -24,7 +25,12 @@ its counterpart's path (``mceik_tpu/eikonal/solve.py`` ->
   grid-sharded solve (``eikonal/dist_sweep.py``) and the station reshard
   of its tables (``forward/reshard.py``).
 - ``diag``     — Welford moments, R-hat and ESS; a device profile of
-  sampler steps or SMC stages (``python -m mceik_tpu_torch.diag.profile``).
+  sampler steps or SMC stages (``python -m mceik_tpu_torch.diag.profile``);
+  the golden-run acceptance harness (``diag/golden.py``, ``python -m
+  mceik_tpu_torch.diag.golden check``) and the on-card sanity check of
+  every batched route (``python -m mceik_tpu_torch.diag.sanity``).
+- ``native``   — the C++ serial fast-sweeping oracle (``native/fsm.cc``),
+  built by g++ at first use and bound with ctypes.
 - ``io``       — JSON configs with dotted overrides, JSONL metrics.
 - ``api`` / ``cli`` — ``python -m mceik_tpu_torch run <config>``.
 

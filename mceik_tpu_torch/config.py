@@ -26,6 +26,8 @@ class GridCfg:
 
 @dataclasses.dataclass(frozen=True)
 class EikonalCfg:
+    # "sweep" (plane sweeps: the kernels' solve on the card) or "jacobi"
+    # (the plain Jacobi solve, on every route and device).
     method: str = "sweep"
     tol: float = 1e-4
     max_iters: int = 50

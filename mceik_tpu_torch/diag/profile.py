@@ -102,7 +102,8 @@ def _traced(fn, path):
     }
 
 
-def _kernels():
+def kernels():
+    """Every kernel wrapper, by the name its counts go under."""
     from mceik_tpu_torch.eikonal import cuda_sweep, cuda_transport
     return {"sweep3d_cycle": cuda_sweep.SWEEP3D,
             "transport3d_cycle": cuda_transport.TRANSPORT3D,
@@ -111,12 +112,12 @@ def _kernels():
             "transport2d": cuda_transport.TRANSPORT2D}
 
 
-def _counts():
+def counts():
     """Every kernel's launches, and the 2-D kernels' cycles summed over
     fields as the kernels count them (one launch of K3 or K6 runs every
     field's whole solve; one launch of K1, K4 or K5 is one cycle)."""
     out = {}
-    for name, k in _kernels().items():
+    for name, k in kernels().items():
         out[name] = k.launches
         if hasattr(k, "field_cycles"):
             out[f"{name}_field_cycles"] = k.field_cycles()
@@ -126,7 +127,7 @@ def _counts():
 
 
 def _per(before, after, n):
-    """The counts that moved between two ``_counts()``, per step."""
+    """The counts that moved between two ``counts()``, per step."""
     return {k: (after[k] - before[k]) / n for k in after
             if after[k] > before[k]}
 
@@ -143,13 +144,13 @@ def _profile_gradients(post, gen, chain_counts):
         vag(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counts0 = _counts()
+        counts0 = counts()
         t0 = time.perf_counter()
         lp, _ = vag(params)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rows.append({"n_chains": n, "ms_per_value_and_grad": ms,
-                     "launches": _per(counts0, _counts(), 1),
+                     "launches": _per(counts0, counts(), 1),
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "logpost_finite": bool(torch.isfinite(lp).all())})
         del params, lp
@@ -197,14 +198,14 @@ def _profile_mcmc(cfg, args, path):
                  n_steps=0, finalize_fn=finalize_fn)
     states, hyper = r.states, r.hyper
 
-    counts0 = _counts()
+    counts0 = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = run_mcmc(kernel, None, states, hyper, gen, n_warmup=0,
                  n_steps=args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    per_step = _per(counts0, _counts(), args.steps)
+    per_step = _per(counts0, counts(), args.steps)
     info = {k: float(v.mean()) for k, v in r.info_trace.items()}
     states = r.states
     summary = _traced(lambda: run_mcmc(kernel, None, states, hyper, gen,
@@ -232,7 +233,7 @@ def _profile_smc(cfg, args, path):
             state, beta, *_ = smc.stage(post, state, beta, gen, k, target)
 
     stages(args.warm)
-    counts0 = _counts()
+    counts0 = counts()
     beta_s, stage_s = [], []
     for _ in range(args.steps):
         torch.cuda.synchronize()
@@ -242,7 +243,7 @@ def _profile_smc(cfg, args, path):
         t0 = time.perf_counter()
         stages(1)
         stage_s.append(time.perf_counter() - t0)
-    per_step = _per(counts0, _counts(), args.steps)
+    per_step = _per(counts0, counts(), args.steps)
     summary = _traced(lambda: stages(args.steps), path)
     per_stage = sum(stage_s) / len(stage_s)
     return {"n_particles": n, "n_mutation_steps": k, "stages": args.steps,

@@ -15,7 +15,8 @@ import torch
 
 from mceik_tpu_torch.eikonal import cuda_sweep
 from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
-                                           seed_floor, seed_source,
+                                           jacobi_solve, seed_floor,
+                                           seed_source,
                                            solve_route, source_scalars,
                                            sweep_cycle_plain, sweep_solve)
 from mceik_tpu_torch.grid import Grid
@@ -42,13 +43,16 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
         ``"gridbatch"``, 3-D only, is the ``"field"`` route under the name
         of the reference's seeded route; ``"xla"`` is the plain sweep with
         a floor operand. CPU tensors take each route's plain version.
+        ``config.method="jacobi"`` runs the plain Jacobi solve
+        (``solve.jacobi_solve``) on every route and device: it has no
+        kernel, and no K1 or K3 launch is made for it. (The reference
+        honours it on its ``"xla"`` route only; its kernel routes sweep
+        whatever the method says.)
 
     Returns ``(B,) + grid.shape`` fp32 traveltimes.
     """
-    if config.method != "sweep":
-        raise NotImplementedError(
-            f"eikonal method {config.method!r}: the port runs 'sweep' only "
-            "(the Jacobi solve is not ported yet)")
+    if config.method not in ("sweep", "jacobi"):
+        raise ValueError(f"unknown method {config.method!r}")
     s = torch.as_tensor(slowness, dtype=torch.float32)
     if impl is None:
         impl = solve_route(grid.shape, config.use_pallas, s.device)
@@ -66,6 +70,9 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
                          f"{grid.shape}")
     s = s.contiguous()
     T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
+    if config.method == "jacobi":
+        return jacobi_solve(T0, frozen, s, grid.spacing, config.tol,
+                            config.max_iters)
     if impl == "xla":
         return sweep_solve(T0, seed_floor(T0, frozen), s, grid.spacing,
                            config.tol, config.max_iters, config.n_inner,

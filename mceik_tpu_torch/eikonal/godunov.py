@@ -8,7 +8,8 @@ smallest-n subsets, with the cancellation-free discriminant
 ``(sum w) s^2 - sum_{i<j} w_i w_j (a_i - a_j)^2``.
 
 The CUDA sweep kernel (``csrc/sweep3d.cu``) repeats this arithmetic in the
-same order; keep the two in step.
+same order; keep the two in step. :func:`godunov_update` is the Jacobi
+solve's pass (``solve.jacobi_step_plain``).
 """
 
 from __future__ import annotations
@@ -166,3 +167,13 @@ def local_solve(a: Sequence[torch.Tensor], spacing: Sequence[float],
         return torch.where(t1 <= a2, t1, torch.where(t2 <= a3, t2, t3))
 
     raise ValueError(f"only 2-D/3-D grids supported, got D={D}")
+
+
+def godunov_update(T: torch.Tensor, s: torch.Tensor,
+                   spacing: Sequence[float]) -> torch.Tensor:
+    """One monotone Jacobi pass over a batch ``(B,) + grid``: every node
+    from its neighbours, ``T_new = min(T, local_solve(neighbour minima))``.
+    Values only decrease, so iterating from BIG with frozen seeds converges
+    monotonically to the sweeps' fixed point."""
+    a = [neighbor_min(T, d + 1) for d in range(T.ndim - 1)]
+    return torch.minimum(T, local_solve(a, spacing, s))

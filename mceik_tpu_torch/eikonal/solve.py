@@ -1,5 +1,5 @@
-"""Eikonal solver pieces: solver config, source seeding, and the plain
-plane-sweep solve.
+"""Eikonal solver pieces: solver config, source seeding, the plain
+plane-sweep solve and the Jacobi solve.
 
 Counterpart of ``mceik_tpu/eikonal/solve.py``. Everything works on an
 explicit batch of fields ``(B,) + grid.shape``. The plain sweep here is the
@@ -17,6 +17,14 @@ Jacobi steps ``T = max(min(T, local_solve(a)), floor)``. ``floor`` is the
 seed value on the frozen seed ball and 0 elsewhere: the monotone update can
 only push a seeded node below its seed, and traveltimes are >= 0, so the
 max restores frozen nodes exactly as ``where(frozen, T0, T)`` does.
+
+The Jacobi solve (``method="jacobi"``, :func:`jacobi_solve`) updates every
+node at once from its neighbours, ``godunov.godunov_update``, and pins the
+frozen seed nodes at ``T0``; information moves one node per pass, so it
+takes hundreds of passes where the sweeps take a few cycles. It runs under
+the same per-field loop, :func:`sweep_solve`, one pass per counted
+iteration, and has no kernel: it is plain torch on every device, as it is
+XLA's work in the reference.
 
 Routes. The reference picks its solve by field size and by whether its
 kernels are on (``mceik_tpu/forward/predict.py:37-76``); :func:`solve_route`
@@ -36,7 +44,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from mceik_tpu_torch.eikonal.godunov import BIG, local_solve, neighbor_min
+from mceik_tpu_torch.eikonal.godunov import (BIG, godunov_update,
+                                             local_solve, neighbor_min)
 from mceik_tpu_torch.grid import Grid, sample_linear
 
 
@@ -45,7 +54,8 @@ class EikonalConfig:
     """Solver configuration.
 
     Attributes:
-      method: "sweep" (the only method the port runs).
+      method: "sweep" (plane sweeps, the kernels' solve) or "jacobi" (the
+        plain Jacobi solve, on every route and device).
       tol: max-abs traveltime change per cycle that counts as converged.
       max_iters: bound on sweep cycles.
       n_inner: in-plane Jacobi micro-iterations per plane update.
@@ -277,6 +287,32 @@ def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
         if bool(done.all()):
             break
     return (T, cycles) if return_cycles else T
+
+
+def jacobi_step_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
+                      done: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Jacobi pass with :func:`sweep_solve`'s cycle signature, on the
+    fields whose ``done`` flag is clear (done fields come back unchanged):
+    ``godunov_update``, then the frozen nodes pinned at ``T0`` with the
+    mask, as the reference's ``where(frozen, T0, T_new)`` does (a NaN
+    slowness lands where it lands there). ``floor`` is the pair
+    ``(T0, frozen)``; ``n_inner`` is unused, as in the reference."""
+
+    def step(Ta, sa, seed):
+        T0, frozen = seed
+        return torch.where(frozen, T0, godunov_update(Ta, sa, spacing))
+
+    return on_active_fields(step, done, T, s, tuple(floor))
+
+
+def jacobi_solve(T0, frozen, s, spacing: Sequence[float], tol: float,
+                 max_iters: int, return_cycles: bool = False):
+    """The Jacobi solve of a batch from its seed ``(T0, frozen)``
+    (reference ``solve._jacobi_solve``): :func:`sweep_solve` around
+    :func:`jacobi_step_plain`, one pass per counted iteration, each field
+    stopping on its own once a pass changes it by no more than ``tol``."""
+    return sweep_solve(T0, (T0, frozen), s, spacing, tol, max_iters, 0,
+                       cycle=jacobi_step_plain, return_cycles=return_cycles)
 
 
 def sweep_solve_fields_plain(T0, s, scal, spacing: Sequence[float],

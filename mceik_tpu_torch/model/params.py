@@ -11,6 +11,7 @@ chain axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -28,6 +29,52 @@ class Params:
     noise_z: Optional[torch.Tensor] = None    # (n_sta,) spike-slab indicators
 
 
+_MODES = {2: "bilinear", 3: "trilinear"}
+
+
+@functools.lru_cache(maxsize=64)
+def linear_resample_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``(n_out, n_in)`` weights of 1-D linear resampling with half-pixel
+    centres and clamped edges, computed as ``F.interpolate(...,
+    align_corners=False)`` computes them (fp32 source index
+    ``max(n_in / n_out * (i + 0.5) - 0.5, 0)``). Cached per shape and
+    device: treat the result as read-only."""
+    scale = torch.tensor(n_in, dtype=torch.float32) / n_out
+    i = torch.arange(n_out, dtype=torch.float32)
+    src = torch.clamp(scale * (i + 0.5) - 0.5, min=0.0)
+    i0 = src.long()
+    i1 = torch.clamp(i0 + 1, max=n_in - 1)
+    l1 = src - i0.to(torch.float32)
+    A = torch.zeros((n_out, n_in), dtype=torch.float32)
+    rows = torch.arange(n_out)
+    A.index_put_((rows, i0), 1.0 - l1, accumulate=True)
+    A.index_put_((rows, i1), l1, accumulate=True)
+    return A.to(device)
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate``'s linear upsampling of a ``(C,) + coarse`` batch,
+    whose backward is the separable transpose, one matrix product per axis,
+    in place of the CUDA backward's atomic adds: the same gradient to
+    rounding, but the same bits on every run, so that a seeded gradient
+    sampler on the card is reproducible."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.shapes = (tuple(x.shape[1:]), size)
+        return F.interpolate(x.unsqueeze(1), size=size,
+                             mode=_MODES[len(size)],
+                             align_corners=False).squeeze(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        coarse, fine = ctx.shapes
+        for d in reversed(range(len(fine))):
+            A = linear_resample_matrix(coarse[d], fine[d], str(g.device))
+            g = torch.tensordot(g, A, dims=([d + 1], [0])).movedim(-1, d + 1)
+        return g, None
+
+
 def slowness_from_u(u: torch.Tensor, grid: Grid,
                     background: torch.Tensor) -> torch.Tensor:
     """Coarse unconstrained field -> positive slowness on the forward grid.
@@ -36,7 +83,8 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     half-pixel centres and clamped edges (``align_corners=False``) is what
     ``jax.image.resize(method="linear")`` does when it upsamples; it
     antialiases when it downsamples, which this does not, so a coarser
-    forward grid is refused.
+    forward grid is refused. On CUDA tensors the backward is
+    :class:`_Upsample`'s, which is reproducible bit for bit.
     """
     nd = grid.ndim
     batched = u.ndim == nd + 1
@@ -44,9 +92,11 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     if any(a > b for a, b in zip(x.shape[1:], grid.shape)):
         raise ValueError(f"inversion grid {tuple(x.shape[1:])} is finer than "
                          f"the forward grid {grid.shape}")
-    mode = {2: "bilinear", 3: "trilinear"}[nd]
-    up = F.interpolate(x.unsqueeze(1), size=grid.shape, mode=mode,
-                       align_corners=False).squeeze(1)
+    if x.is_cuda:
+        up = _Upsample.apply(x, tuple(grid.shape))
+    else:
+        up = F.interpolate(x.unsqueeze(1), size=grid.shape, mode=_MODES[nd],
+                           align_corners=False).squeeze(1)
     if not batched:
         up = up[0]
     return background * torch.exp(up)

@@ -215,3 +215,38 @@ def test_welford_matches_jax():
     np.testing.assert_allclose(tb.m2.u.numpy(), np.asarray(jb.m2.u), rtol=1e-5)
     np.testing.assert_allclose(tb.m2.u.numpy() / (tb.count.numpy() - 1),
                                xs.reshape(-1, 4, 3).var(0, ddof=1), rtol=1e-4)
+
+
+@pytest.mark.parametrize("coarse,fine", [((3, 3, 2), (12, 12, 10)),
+                                         ((12, 12, 12), (64, 64, 64)),
+                                         ((16, 16), (65, 65))])
+def test_upsample_backward_is_the_separable_transpose(coarse, fine):
+    """The upsampling that CUDA tensors take (``params._Upsample``): the
+    forward is ``F.interpolate``'s bit for bit; the backward, one matrix
+    product per axis with ``linear_resample_matrix`` (whose products also
+    give the forward within 1e-6 of its max), is ``F.interpolate``'s
+    gradient within 2e-6 of its max, and the same bits on every call. The
+    matrices are device-independent, so the CPU runs the same code."""
+    import torch.nn.functional as F
+    from mceik_tpu_torch.model.params import _Upsample, linear_resample_matrix
+
+    gen = torch.Generator().manual_seed(len(fine))
+    x = torch.randn((3,) + coarse, generator=gen).requires_grad_(True)
+    y = _Upsample.apply(x, fine)
+    x_ref = x.detach().clone().requires_grad_(True)
+    y_ref = F.interpolate(x_ref.unsqueeze(1), size=fine,
+                          mode={2: "bilinear", 3: "trilinear"}[len(fine)],
+                          align_corners=False).squeeze(1)
+    assert torch.equal(y, y_ref)
+    t = x.detach()
+    for d in range(len(fine)):
+        A = linear_resample_matrix(coarse[d], fine[d], "cpu")
+        assert torch.allclose(A.sum(1), torch.ones(fine[d]))
+        t = torch.tensordot(t, A, dims=([d + 1], [1])).movedim(-1, d + 1)
+    assert float((t - y_ref).abs().max()) <= 1e-6 * float(y_ref.abs().max())
+    g = torch.randn(y.shape, generator=gen)
+    (a,) = torch.autograd.grad(y, x, g)
+    (b,) = torch.autograd.grad(y_ref, x_ref, g)
+    assert float((a - b).abs().max()) <= 2e-6 * float(b.abs().max())
+    (again,) = torch.autograd.grad(_Upsample.apply(x, fine), x, g)
+    assert torch.equal(again, a)
