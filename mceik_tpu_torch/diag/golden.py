@@ -10,9 +10,12 @@ different seed and the golden's pinned proposal must give per cell
 
 with max |z| < 3.5 and median |z| < 1.5, where each ``se`` is
 ``sqrt(var / max(ESS, 2))`` with the autocorrelation-corrected per-cell
-ESS. Both runs are seeded, so a check is deterministic on one device; the
-card's generator draws other numbers than the CPU's, and both are held to
-the same bar.
+ESS. Both runs are seeded, and a run's generator lives on the host
+(``rng="host"``): every random number is drawn there and moved to the
+run's device, so a check on the card draws the CPU check's numbers and,
+its posterior being the CPU's (:func:`device_parity`), takes the CPU's
+chain up to rounding. ``rng="device"`` draws on the run's device instead
+(CUDA's generator on the card: another random stream, the same bars).
 
 The problems' data are the reference's own draw (JAX's noise), committed as
 ``golden_data/<name>.pt`` (written by ``tools/torch_golden_data.py`` with
@@ -25,10 +28,14 @@ kernels), which changes no posterior.
 Check on the card (all four problems through the kernels, at the
 reference's check budgets and bars; exits non-zero if a bar fails)::
 
-    python -m mceik_tpu_torch.diag.golden check [names...] [--device cuda|cpu] [--route on|off]
+    python -m mceik_tpu_torch.diag.golden check [names...] [--device cuda|cpu] [--route on|off] [--rng host|device]
 
 ``--seeds 133,233`` runs each named problem at those seeds instead of its
-budget's, to see the check's spread over random streams.
+budget's, to see the check's spread over random streams. The card's
+posterior against the CPU's plain one, at the golden's points and draws
+around them (exits non-zero above the bars)::
+
+    python -m mceik_tpu_torch.diag.golden parity [names...] [--device cuda] [--route on|off]
 """
 
 from __future__ import annotations
@@ -131,6 +138,11 @@ MIN_ACCEPT = 0.05
 MIN_MEDIAN_ESS = 20.0
 # Where the inversion basis can represent the checkerboard.
 RECOVERY_MIN = {"c1_small": 0.5}
+# device_parity's bars: the logpost's (tests/test_torch_golden.py's, the
+# port against JAX) and the gradient's per-point relative L2 (the port's
+# gradient against JAX's, tests/test_torch_adjoint.py).
+PARITY_LOGPOST_RTOL = 2e-5
+PARITY_GRAD_REL_L2 = 1e-4
 
 
 def _tuples(d):
@@ -149,6 +161,16 @@ def problem_grid(name: str) -> Grid:
 def load_data(name: str, device="cpu"):
     """``(data, truth)`` of the problem: the committed reference draw."""
     return load_dataset_pt(str(DATA_DIR / f"{name}.pt"), device=device)
+
+
+def _generator(seed: int, dev: torch.device, rng: str) -> torch.Generator:
+    """The run's generator: on the host (``"host"``) or on ``dev``
+    (``"device"``). The samplers and the posterior draw on the generator's
+    device and move the numbers to the run's."""
+    if rng not in ("host", "device"):
+        raise ValueError(f"rng must be 'host' or 'device', not {rng!r}")
+    return torch.Generator(
+        device="cpu" if rng == "host" else dev).manual_seed(seed)
 
 
 def _build(name: str, device="cuda", use_pallas: Optional[str] = None,
@@ -200,7 +222,7 @@ def _stats(flat: np.ndarray, accept, final_proposal: dict) -> dict:
 
 def run_problem(name: str, seed: int, n_warmup: int, n_steps: int,
                 thin: int = 2, proposal: dict = None, device="cuda",
-                use_pallas: Optional[str] = None):
+                use_pallas: Optional[str] = None, rng: str = "host"):
     """Seeded run of a golden problem (8 chains); returns per-cell moment
     stats.
 
@@ -210,7 +232,8 @@ def run_problem(name: str, seed: int, n_warmup: int, n_steps: int,
     proposal (the covariance pinned at a count of 1e6, so warmup retunes
     only the step) makes the check mix from step one; without it the run
     adapts from scratch (golden generation). One generator seeded with
-    ``seed`` on ``device`` draws the starts, then the steps.
+    ``seed`` (on the host, or with ``rng="device"`` on ``device``) draws
+    the starts, then the steps.
 
     Returns ``mean``, ``var``, ``se``, ``ess`` (per cell of the tracked
     vector: u for tomo problems, the full flat params for joint ones),
@@ -219,10 +242,10 @@ def run_problem(name: str, seed: int, n_warmup: int, n_steps: int,
     """
     if _is_mala(name):
         return _run_problem_mala(name, seed, n_warmup, n_steps, thin,
-                                 proposal, device, use_pallas)
+                                 proposal, device, use_pallas, rng)
     dev = torch.device(device)
     post = _build(name, dev, use_pallas)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(seed, dev, rng)
     states = init_chain_states(post.logpost, post.init_params, gen, N_CHAINS)
     hyper = am_full.init_hyper(post.prior_scales, 0.3)
     if proposal is not None:
@@ -252,7 +275,7 @@ def run_problem(name: str, seed: int, n_warmup: int, n_steps: int,
 
 def _run_problem_mala(name: str, seed: int, n_warmup: int, n_steps: int,
                       thin: int = 2, proposal: dict = None, device="cuda",
-                      use_pallas: Optional[str] = None):
+                      use_pallas: Optional[str] = None, rng: str = "host"):
     """MALA leg of :func:`run_problem`: the Laplace/Gauss-Newton covariance
     is the pinned preconditioner, chains start at the MAP plus 0.3x Laplace
     jitter, and only the step adapts. Golden generation (``proposal``
@@ -275,12 +298,12 @@ def _run_problem_mala(name: str, seed: int, n_warmup: int, n_steps: int,
     cov += (1e-9 * np.trace(cov) / cov.shape[0]) * np.eye(cov.shape[0])
     L = torch.tensor(np.linalg.cholesky(cov), dtype=torch.float32, device=dev)
     x0 = torch.tensor(x_map, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(seed, dev, rng)
     unravel = _unravel_fn(post.init_params(gen, 1), batch_dims=1)
 
     def init(g, n):
-        xi = torch.randn((n, x0.shape[0]), generator=g, device=dev)
-        return unravel(x0 + 0.3 * xi @ L.T)
+        xi = torch.randn((n, x0.shape[0]), generator=g, device=g.device)
+        return unravel(x0 + 0.3 * xi.to(dev) @ L.T)
 
     states = mala.init_states(post.logpost, init, gen, N_CHAINS)
     hyper = dataclasses.replace(
@@ -298,7 +321,8 @@ def _run_problem_mala(name: str, seed: int, n_warmup: int, n_steps: int,
 
 def make_golden(name: str, seed: int = 1000, n_warmup: int = 2000,
                 n_steps: int = 24000, thin: int = 4, out_dir: str = None,
-                device="cuda", use_pallas: Optional[str] = None):
+                device="cuda", use_pallas: Optional[str] = None,
+                rng: str = "host"):
     """Generate a golden artifact of ``name`` in the committed schema and
     write it to ``out_dir`` (default ``build/golden/``, never
     ``tests/golden/``); returns ``(path, artifact)``.
@@ -309,7 +333,7 @@ def make_golden(name: str, seed: int = 1000, n_warmup: int = 2000,
     proposal is stored so that a check reuses exactly it."""
     n_steps = PROBLEMS[name].get("golden_n_steps", n_steps)
     thin = PROBLEMS[name].get("golden_thin", thin)
-    run = dict(device=device, use_pallas=use_pallas)
+    run = dict(device=device, use_pallas=use_pallas, rng=rng)
     if _is_mala(name):
         stats = run_problem(name, seed + 500, 500, n_steps, thin, **run)
         prop_store = {
@@ -359,7 +383,7 @@ def load_golden(name: str, golden_dir: str = None):
 
 def z_scores(name: str, golden: dict, seed: int, n_warmup: int,
              n_steps: int, thin: int = 2, device="cuda",
-             use_pallas: Optional[str] = None):
+             use_pallas: Optional[str] = None, rng: str = "host"):
     """A check run (another seed, the golden's fixed proposal) -> per-cell
     |z| and the run's stats. The artifact's spec must equal the problem's
     as it stands."""
@@ -368,7 +392,7 @@ def z_scores(name: str, golden: dict, seed: int, n_warmup: int,
         "if the problem definition changed on purpose")
     stats = run_problem(name, seed, n_warmup, n_steps, thin,
                         proposal=golden["proposal"], device=device,
-                        use_pallas=use_pallas)
+                        use_pallas=use_pallas, rng=rng)
     mean_g = np.asarray(golden["mean"])
     se_g = np.asarray(golden["se"])
     z = (stats["mean"] - mean_g) / np.sqrt(stats["se"] ** 2 + se_g ** 2)
@@ -392,7 +416,7 @@ def bars(name: str, z: np.ndarray, stats: dict) -> dict:
 
 def check(names: Sequence[str] = tuple(PROBLEMS), device="cuda",
           route: Optional[str] = "on", verbose: bool = True,
-          seeds: Optional[Sequence[int]] = None):
+          seeds: Optional[Sequence[int]] = None, rng: str = "host"):
     """The check run of each problem at the reference's budget, with its
     bars, wall seconds and every kernel's launches in the run (counts
     reset before it). ``seeds``: run each problem at each of these seeds
@@ -404,17 +428,14 @@ def check(names: Sequence[str] = tuple(PROBLEMS), device="cuda",
     for name, seed in [(n, s) for n in names
                        for s in (seeds or [CHECK_BUDGET[n][0]])]:
         _, n_warmup, n_steps = CHECK_BUDGET[name]
-        for k in profile.kernels().values():
-            k.launches = 0
-            if hasattr(k, "block_launches"):
-                k.block_launches = 0
+        profile.reset()
         c0 = profile.counts()     # the 2-D kernels' cycles keep counting
         t0 = time.perf_counter()
         z, stats = z_scores(name, load_golden(name), seed, n_warmup, n_steps,
-                            device=device, use_pallas=route)
+                            device=device, use_pallas=route, rng=rng)
         wall = time.perf_counter() - t0
         res = {"problem": name, "seed": seed, "device": str(device),
-               "route": route,
+               "route": route, "rng": rng,
                "bars": bars(name, z, stats), "seconds": wall,
                "launches": {k: v - c0[k] for k, v in profile.counts().items()}}
         res["ok"] = all(p for _, p in res["bars"].values())
@@ -429,8 +450,68 @@ def check(names: Sequence[str] = tuple(PROBLEMS), device="cuda",
                   f"{b['max_z'][0]:.3f}, median |z| {b['median_z'][0]:.3f}, "
                   f"acceptance {b['accept'][0]:.4f}, median ESS "
                   f"{b['median_ess'][0]:.1f}{corr}; {wall:.1f} s on "
-                  f"{device} (route {route}); launches {launched}",
+                  f"{device} (route {route}, rng {rng}); launches "
+                  f"{launched}",
                   flush=True)
+    return out
+
+
+def device_parity(name: str, device="cuda", use_pallas: Optional[str] = "on",
+                  n_points: int = 32, seed: int = 0) -> dict:
+    """The problem's posterior on ``device`` (route ``use_pallas``) against
+    the CPU's plain one, at the golden's mean, its MAP where it has one, and
+    ``n_points`` draws around the MAP (else the mean) from the golden
+    proposal's covariance. Returns the largest logpost difference and, for
+    MALA problems, the largest per-point L2 difference of the gradients,
+    each relative to the CPU's root mean square over the points (a per-point
+    ratio blows up where a logpost crosses zero or at the MAP, whose
+    gradient is ~0), the largest absolute logpost difference, and whether
+    the device's gradient repeats its bits on a second call; ``ok``
+    against the ``PARITY_*`` bars."""
+    from mceik_tpu_torch.model.posterior import value_and_grad
+
+    art = load_golden(name)
+    prop = art["proposal"]
+    centre = np.asarray(prop.get("x_map", art["mean"]), np.float64)
+    cov = np.asarray(prop["cov"], np.float64)
+    cov = 0.5 * (cov + cov.T) + (1e-9 * np.trace(cov) / len(cov)) * np.eye(
+        len(cov))
+    xi = torch.randn((n_points, len(centre)), dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(seed)).numpy()
+    pts = [np.asarray(art["mean"])] + (
+        [centre] if "x_map" in prop else []) + list(
+            centre + xi @ np.linalg.cholesky(cov).T)
+    x = torch.tensor(np.stack(pts), dtype=torch.float32)
+    mala_problem = _is_mala(name)
+    lps, grads, repeat = [], [], True
+    for d, route in ((torch.device(device), use_pallas),
+                     (torch.device("cpu"), "off")):
+        post = _build(name, d, route)
+        unravel = _unravel_fn(post.init_params(torch.Generator().manual_seed(
+            0), 1), batch_dims=1)
+        params = unravel(x.to(d))
+        if mala_problem:
+            vag = value_and_grad(post.logpost)
+            lp, g = vag(params)
+            g = _ravel(g, batch_dims=1)
+            if d.type != "cpu":
+                repeat = torch.equal(g, _ravel(vag(params)[1], batch_dims=1))
+            grads.append(g.double().cpu())
+        else:
+            lp = post.logpost(params)
+        lps.append(lp.detach().double().cpu())
+    d_lp = (lps[0] - lps[1]).abs()
+    out = {"problem": name, "points": len(pts),
+           "logpost_rel": float(d_lp.max() / lps[1].square().mean().sqrt()),
+           "logpost_abs": float(d_lp.max())}
+    ok = out["logpost_rel"] <= PARITY_LOGPOST_RTOL
+    if mala_problem:
+        g_norm = grads[1].norm(dim=1)
+        out["grad_rel_l2"] = float((grads[0] - grads[1]).norm(dim=1).max()
+                                   / g_norm.square().mean().sqrt())
+        out["grad_repeats"] = repeat
+        ok = ok and out["grad_rel_l2"] <= PARITY_GRAD_REL_L2 and repeat
+    out["ok"] = bool(ok)
     return out
 
 
@@ -444,15 +525,28 @@ def main(argv=None) -> int:
     c.add_argument("--seeds", default=None,
                    help="comma-separated seeds to run each problem at "
                         "instead of its check budget's")
+    c.add_argument("--rng", default="host", choices=["host", "device"],
+                   help="where the random numbers are drawn")
+    q = sub.add_parser("parity", help="the device's posterior against the "
+                                      "CPU's at the golden's points")
+    q.add_argument("names", nargs="*", default=list(PROBLEMS))
+    q.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    q.add_argument("--route", default="on", choices=["on", "off"])
     args = ap.parse_args(argv)
     unknown = [n for n in args.names if n not in PROBLEMS]
     if unknown:
         ap.error(f"unknown problems {unknown}; known: {list(PROBLEMS)}")
     from mceik_tpu_torch.api import prepare_device
     device = prepare_device(args.device)
+    if args.cmd == "parity":
+        rows = [device_parity(n, device, args.route) for n in args.names]
+        for r in rows:
+            print(json.dumps(r), flush=True)
+        return 0 if all(r["ok"] for r in rows) else 1
     seeds = ([int(x) for x in args.seeds.split(",")] if args.seeds
              else None)
-    results = check(args.names, device, args.route, seeds=seeds)
+    results = check(args.names, device, args.route, seeds=seeds,
+                    rng=args.rng)
     failed = [f"{r['problem']} (seed {r['seed']})" for r in results
               if not r["ok"]]
     print(f"golden check: {len(results) - len(failed)} of {len(results)} "

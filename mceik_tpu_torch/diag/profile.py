@@ -126,6 +126,15 @@ def counts():
     return out
 
 
+def reset():
+    """Every kernel's launch counts to 0 (the 2-D kernels' field cycles go
+    on counting: read them as the difference of two :func:`counts`)."""
+    for k in kernels().values():
+        k.launches = 0
+        if hasattr(k, "block_launches"):
+            k.block_launches = 0
+
+
 def _per(before, after, n):
     """The counts that moved between two ``counts()``, per step."""
     return {k: (after[k] - before[k]) / n for k in after

@@ -55,9 +55,10 @@ def linear_resample_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
 class _Upsample(torch.autograd.Function):
     """``F.interpolate``'s linear upsampling of a ``(C,) + coarse`` batch,
     whose backward is the separable transpose, one matrix product per axis,
-    in place of the CUDA backward's atomic adds: the same gradient to
-    rounding, but the same bits on every run, so that a seeded gradient
-    sampler on the card is reproducible."""
+    in place of ``interpolate``'s own backward (atomic adds on CUDA): the
+    same gradient to rounding, but the same bits on every run and the same
+    code on every device, so that a seeded gradient sampler is
+    reproducible."""
 
     @staticmethod
     def forward(ctx, x, size):
@@ -83,8 +84,8 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     half-pixel centres and clamped edges (``align_corners=False``) is what
     ``jax.image.resize(method="linear")`` does when it upsamples; it
     antialiases when it downsamples, which this does not, so a coarser
-    forward grid is refused. On CUDA tensors the backward is
-    :class:`_Upsample`'s, which is reproducible bit for bit.
+    forward grid is refused. The backward is :class:`_Upsample`'s, which
+    is reproducible bit for bit.
     """
     nd = grid.ndim
     batched = u.ndim == nd + 1
@@ -92,11 +93,7 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     if any(a > b for a, b in zip(x.shape[1:], grid.shape)):
         raise ValueError(f"inversion grid {tuple(x.shape[1:])} is finer than "
                          f"the forward grid {grid.shape}")
-    if x.is_cuda:
-        up = _Upsample.apply(x, tuple(grid.shape))
-    else:
-        up = F.interpolate(x.unsqueeze(1), size=grid.shape, mode=_MODES[nd],
-                           align_corners=False).squeeze(1)
+    up = _Upsample.apply(x, tuple(grid.shape))
     if not batched:
         up = up[0]
     return background * torch.exp(up)

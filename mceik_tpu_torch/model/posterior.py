@@ -177,8 +177,10 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
             cache_dir=cfg.table_cache_dir or None)
 
     def randn(gen, shape):
+        # Drawn where the generator lives (a host generator gives the same
+        # starts on every device).
         return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device)
+                           device=gen.device).to(device)
 
     def slab_sigma(z, ls):
         """Spike-slab noise per chain and station, ``(C, 1, n_sta)``."""

@@ -62,10 +62,12 @@ def init_chain_states(logpost_fn: Callable, init_params_fn: Callable,
 
 def draw_normal_uniform(gen: torch.Generator, states: MHState):
     """The default draws: a standard-normal tree like the params and one
-    uniform per chain."""
+    uniform per chain, made on the generator's device (a host generator
+    draws the same numbers for a run on any device)."""
     normal = tree_random_normal(gen, states.params)
     uniform = torch.rand(states.logpost.shape, generator=gen,
-                         dtype=torch.float32, device=states.logpost.device)
+                         dtype=torch.float32, device=gen.device).to(
+                             states.logpost.device)
     return normal, uniform
 
 

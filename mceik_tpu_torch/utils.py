@@ -42,9 +42,10 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 def tree_random_normal(gen: torch.Generator, example: Any) -> Any:
     """Standard-normal tree with the shapes of ``example``, drawn leaf by
-    leaf from ``gen``."""
+    leaf from ``gen`` on its device and moved to each leaf's."""
     return tree_map(lambda x: torch.randn(
-        x.shape, generator=gen, dtype=x.dtype, device=x.device), example)
+        x.shape, generator=gen, dtype=x.dtype, device=gen.device).to(x.device),
+        example)
 
 
 def tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:

@@ -154,7 +154,7 @@ def test_make_golden_writes_the_committed_schema(name, tmp_path, monkeypatch):
     calls = []
 
     def fake(n, seed, n_warmup, n_steps, thin=2, proposal=None, device="cuda",
-             use_pallas=None):
+             use_pallas=None, rng="host"):
         calls.append((seed, n_warmup, n_steps, thin, proposal is None))
         prop = {"cov": np.eye(d), "log_step": -0.5}
         if golden._is_mala(n):
@@ -187,10 +187,11 @@ def test_check_command_applies_the_bars(z_max, rc, monkeypatch, capsys):
     d = len(golden.load_golden("c2_small")["mean"])
 
     def fake(name, art, seed, n_warmup, n_steps, thin=2, device="cuda",
-             use_pallas=None):
+             use_pallas=None, rng="host"):
         assert (n_warmup, n_steps) == golden.CHECK_BUDGET[name][1:]
         assert seed in (golden.CHECK_BUDGET[name][0], 7, 8)
         assert use_pallas == "off"
+        assert rng == "host"
         z = np.full(d, 0.5)
         z[0] = z_max
         return z, {"mean": np.zeros(d), "accept": 0.3,
@@ -205,6 +206,85 @@ def test_check_command_applies_the_bars(z_max, rc, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert ("golden c2_small (seed 32): OK" in out) == (rc == 0)
     assert f"max |z| {z_max:.3f}" in out
+
+
+def test_host_generator_and_its_draws():
+    """A run's generator lives on the host by default (``rng="host"``) and
+    on the run's device with ``rng="device"`` (the CPU's here, so the two
+    runs are one); any other value is refused. The samplers' and the
+    posterior's draws are made on the generator's device and moved to the
+    tensors'."""
+    from mceik_tpu_torch.samplers.base import MHState, draw_normal_uniform
+
+    dev = torch.device("cpu")
+    assert golden._generator(3, dev, "host").device.type == "cpu"
+    with pytest.raises(ValueError, match="rng"):
+        golden._generator(3, dev, "card")
+    a = golden.run_problem("c2_small", 5, 2, 4, device="cpu", rng="host")
+    b = golden.run_problem("c2_small", 5, 2, 4, device="cpu", rng="device")
+    np.testing.assert_array_equal(a["mean"], b["mean"])
+    states = MHState(params={"x": torch.zeros(3, 2, dtype=torch.float64)},
+                     logpost=torch.zeros(3))
+    normal, uniform = draw_normal_uniform(
+        torch.Generator().manual_seed(4), states)
+    g = torch.Generator().manual_seed(4)
+    np.testing.assert_array_equal(
+        normal["x"].numpy(), torch.randn((3, 2), generator=g,
+                                         dtype=torch.float64).numpy())
+    np.testing.assert_array_equal(uniform.numpy(),
+                                  torch.rand(3, generator=g).numpy())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_device_parity_on_the_cpu(name):
+    """``device_parity`` against the CPU itself: the golden's mean, its MAP
+    where it has one and the draws around them, every difference 0 and
+    within the bars; the gradient parts only for the MALA problems."""
+    r = golden.device_parity(name, "cpu", "off", n_points=3)
+    mala = golden._is_mala(name)
+    assert r["points"] == 3 + (2 if mala else 1)
+    assert r["logpost_rel"] == r["logpost_abs"] == 0.0 and r["ok"]
+    assert ("grad_rel_l2" in r) == mala
+    if mala:
+        assert r["grad_rel_l2"] == 0.0 and r["grad_repeats"]
+
+
+def test_parity_command_exits_on_the_bars(monkeypatch, capsys):
+    """``python -m mceik_tpu_torch.diag.golden parity`` prints one JSON row
+    per problem and exits non-zero when a row is over a bar (stubbed)."""
+    rows = {"c1_small": {"problem": "c1_small", "logpost_rel": 1e-7,
+                         "ok": True},
+            "c2_mid": {"problem": "c2_mid", "logpost_rel": 1e-3,
+                       "ok": False}}
+    monkeypatch.setattr(golden, "device_parity",
+                        lambda name, device, route: rows[name])
+    assert golden.main(["parity", "c1_small", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == rows["c1_small"]
+    assert golden.main(["parity", "c1_small", "c2_mid", "--device",
+                        "cpu"]) == 1
+
+
+def test_profile_reset_zeroes_every_launch_count():
+    """``diag.profile.reset`` sets every kernel's launches (and K3's block
+    launches) to 0, as the harness does before each check."""
+    from mceik_tpu_torch.diag import profile
+
+    ks = profile.kernels()
+    saved = {n: (k.launches, getattr(k, "block_launches", None))
+             for n, k in ks.items()}
+    try:
+        for k in ks.values():
+            k.launches = 5
+            if hasattr(k, "block_launches"):
+                k.block_launches = 3
+        profile.reset()
+        assert all(v == 0 for n, v in profile.counts().items()
+                   if not n.endswith("_field_cycles"))
+    finally:
+        for n, k in ks.items():
+            k.launches = saved[n][0]
+            if saved[n][1] is not None:
+                k.block_launches = saved[n][1]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal "

@@ -221,12 +221,12 @@ def test_welford_matches_jax():
                                          ((12, 12, 12), (64, 64, 64)),
                                          ((16, 16), (65, 65))])
 def test_upsample_backward_is_the_separable_transpose(coarse, fine):
-    """The upsampling that CUDA tensors take (``params._Upsample``): the
+    """The upsampling of ``slowness_from_u`` (``params._Upsample``): the
     forward is ``F.interpolate``'s bit for bit; the backward, one matrix
     product per axis with ``linear_resample_matrix`` (whose products also
     give the forward within 1e-6 of its max), is ``F.interpolate``'s
     gradient within 2e-6 of its max, and the same bits on every call. The
-    matrices are device-independent, so the CPU runs the same code."""
+    matrices are device-independent, and every device runs this code."""
     import torch.nn.functional as F
     from mceik_tpu_torch.model.params import _Upsample, linear_resample_matrix
 
