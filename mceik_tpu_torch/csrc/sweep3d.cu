@@ -245,13 +245,16 @@ template <int NPT, bool kRowQ>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
                      const float* __restrict__ scal, float* scratch,
-                     const uint8_t* __restrict__ done, int n0, int n1, int n2,
-                     SweepConsts c) {
+                     const uint8_t* __restrict__ done,
+                     unsigned long long* __restrict__ count, int n0, int n1,
+                     int n2, SweepConsts c) {
   constexpr bool kStageS = NPT > kRegNodes;
   // The register path's exchange buffers carry a BIG halo (no guards).
   constexpr bool kHalo = !kStageS;
   const int b = blockIdx.x;
   if (done[b]) return;  // uniform per CTA: no barrier is skipped by half
+  // One field-cycle per active field and launch.
+  if (count != nullptr && threadIdx.x == 0) atomicAdd(count, 1ULL);
   const int64_t field = (int64_t)n0 * n1 * n2;
   T += b * field;
   S += b * field;
@@ -484,7 +487,8 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
 
 template <int NPT, bool kRowQ>
 int launch_npt(float* T, const float* S, const float* scal, float* scratch,
-               const uint8_t* done, int B, int n0, int n1, int n2,
+               const uint8_t* done, unsigned long long* count, int B, int n0,
+               int n1, int n2,
                const SweepConsts& c, int threads, size_t smem,
                void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -493,7 +497,7 @@ int launch_npt(float* T, const float* S, const float* scal, float* scratch,
   if (err != cudaSuccess) return (int)err;
   sweep3d_cycle_kernel<NPT, kRowQ><<<B, threads, smem,
                                      (cudaStream_t)stream>>>(
-      T, S, scal, scratch, done, n0, n1, n2, c);
+      T, S, scal, scratch, done, count, n0, n1, n2, c);
   return (int)cudaGetLastError();
 }
 
@@ -502,13 +506,15 @@ int launch_npt(float* T, const float* S, const float* scal, float* scratch,
 // C entry, loaded with ctypes: one cycle on the (B, n0, n1, n2) batch T in
 // place, slowness S of the same shape, `scal` the (B, 4) rows
 // (a, b, c, s_src) of each field's source, `radius` the seed ball's radius,
-// `scratch` 2 * B * n0 * n1 * n2 floats for the axis-2 copies. `consts` is
-// a host array of 9 floats (h[3], hh[3], w[3]). Launches on `stream` of
+// `scratch` 2 * B * n0 * n1 * n2 floats for the axis-2 copies, `count`
+// null or a counter that each field not done adds 1 to (its field-cycles).
+// `consts` is a host array of 9 floats (h[3], hh[3], w[3]). Launches on `stream` of
 // `device` and returns the CUDA error code of the set-up calls or of
 // cudaGetLastError() after the launch (0 = launched; -1 = a plane larger
 // than 20 nodes per thread). Does not synchronise.
 extern "C" int sweep3d_cycle(float* T, const float* S, const float* scal,
-                             float* scratch, const uint8_t* done, int B,
+                             float* scratch, const uint8_t* done,
+                             unsigned long long* count, int B,
                              int n0, int n1, int n2, const float* consts,
                              int iso, int n_inner, float radius, int threads,
                              int device, void* stream) {
@@ -540,10 +546,10 @@ extern "C" int sweep3d_cycle(float* T, const float* S, const float* scal,
   // n1 for the transposed axis 2) divide the thread count.
   const bool row_q = threads % n2 == 0 && threads % n1 == 0;
 #define K1_LAUNCH(N)                                                         \
-  (row_q ? launch_npt<N, true>(T, S, scal, scratch, done, B, n0, n1, n2, c, \
-                               threads, smem, stream)                      \
-         : launch_npt<N, false>(T, S, scal, scratch, done, B, n0, n1, n2, c, \
-                                threads, smem, stream))
+  (row_q ? launch_npt<N, true>(T, S, scal, scratch, done, count, B, n0, n1, \
+                               n2, c, threads, smem, stream)               \
+         : launch_npt<N, false>(T, S, scal, scratch, done, count, B, n0, n1, \
+                                n2, c, threads, smem, stream))
   switch (npt) {
     case 1: return K1_LAUNCH(1);
     case 2: return K1_LAUNCH(2);

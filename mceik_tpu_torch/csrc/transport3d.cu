@@ -248,9 +248,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 transport3d_cycle_kernel(float* lam, const float* G, const float* W0,
                          const float* W1, const float* W2, float* ring,
                          uint8_t* ready, const uint8_t* __restrict__ done,
-                         int n0, int n1, int n2, int n_inner) {
+                         unsigned long long* __restrict__ count, int n0, int n1,
+                         int n2, int n_inner) {
   const int b = blockIdx.x;
   if (done[b]) return;  // uniform per CTA: no barrier is skipped by half
+  // One field-cycle per active field and launch.
+  if (count != nullptr && threadIdx.x == 0) atomicAdd(count, 1ULL);
   // K4: this field's ring already holds g and the weights (read by every
   // thread before any barrier; thread 0 sets the flag after one).
   const bool kept = !kLarge && ready != nullptr && ready[b];
@@ -583,7 +586,7 @@ transport3d_cycle_kernel(float* lam, const float* G, const float* W0,
 template <int NPT, bool kRowQ, bool kLarge>
 int launch_npt(float* lam, const float* G, const float* W0, const float* W1,
                const float* W2, float* ring, uint8_t* ready,
-               const uint8_t* done, int B,
+               const uint8_t* done, unsigned long long* count, int B,
                int n0, int n1, int n2, int n_inner, int threads,
                size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -592,7 +595,8 @@ int launch_npt(float* lam, const float* G, const float* W0, const float* W1,
   if (err != cudaSuccess) return (int)err;
   transport3d_cycle_kernel<NPT, kRowQ, kLarge>
       <<<B, threads, smem, (cudaStream_t)stream>>>(
-          lam, G, W0, W1, W2, ring, ready, done, n0, n1, n2, n_inner);
+          lam, G, W0, W1, W2, ring, ready, done, count, n0, n1, n2,
+          n_inner);
   return (int)cudaGetLastError();
 }
 
@@ -612,7 +616,7 @@ size_t smem_bytes(int n0, int n1, int n2, int threads, bool large) {
 template <bool kLarge>
 int launch(float* lam, const float* G, const float* W0, const float* W1,
            const float* W2, float* ring, uint8_t* ready, const uint8_t* done,
-           int B, int n0,
+           unsigned long long* count, int B, int n0,
            int n1, int n2, int n_inner, int threads, int device,
            void* stream) {
   int max_plane = n1 * n2;
@@ -627,11 +631,11 @@ int launch(float* lam, const float* G, const float* W0, const float* W1,
   const bool row_q = threads % n2 == 0 && threads % n1 == 0;
 #define T3_LAUNCH(N)                                                          \
   (row_q ? launch_npt<N, true, kLarge>(lam, G, W0, W1, W2, ring, ready, done, \
-                                       B, n0, n1, n2, n_inner, threads, smem, \
-                                       stream)                                \
+                                       count, B, n0, n1, n2, n_inner, threads, \
+                                       smem, stream)                          \
          : launch_npt<N, false, kLarge>(lam, G, W0, W1, W2, ring, ready, done, \
-                                        B, n0, n1, n2, n_inner, threads,      \
-                                        smem, stream))
+                                        count, B, n0, n1, n2, n_inner,        \
+                                        threads, smem, stream))
   static_assert(kRegNodes == 4 && kLargeNodes == 20,
                 "K4's instances hold 1-4 nodes per thread, K5's 4-20");
   if constexpr (!kLarge) {
@@ -683,7 +687,8 @@ extern "C" int transport3d_large_nodes_per_thread() { return kLargeNodes; }
 // `ring` the axis-2 scratch (the ring_planes entries above). `ready` is
 // NULL, or B flags of a ring kept from cycle to cycle with the same g and
 // weights: K4 copies them into a field's ring where its flag is clear and
-// sets the flag; K5 refills its ring every cycle and ignores it. K4
+// sets the flag; K5 refills its ring every cycle and ignores it. `count` is
+// null or a counter that each field not done adds 1 to (its field-cycles). K4
 // (`transport3d_cycle`, up to 4 nodes per thread in registers, eleven
 // shared planes) and K5 (`transport3d_large_cycle`, up to 20 nodes per
 // thread, three shared planes). Each launches on `stream` of `device` and
@@ -692,20 +697,21 @@ extern "C" int transport3d_large_nodes_per_thread() { return kLargeNodes; }
 // than the entry takes). Neither synchronises.
 extern "C" int transport3d_cycle(float* lam, const float* G, const float* W0,
                                  const float* W1, const float* W2, float* ring,
-                                 uint8_t* ready, const uint8_t* done, int B,
-                                 int n0, int n1, int n2, int n_inner,
-                                 int threads, int device, void* stream) {
-  return launch<false>(lam, G, W0, W1, W2, ring, ready, done, B, n0, n1, n2,
-                       n_inner, threads, device, stream);
+                                 uint8_t* ready, const uint8_t* done,
+                                 unsigned long long* count, int B, int n0,
+                                 int n1, int n2, int n_inner, int threads,
+                                 int device, void* stream) {
+  return launch<false>(lam, G, W0, W1, W2, ring, ready, done, count, B, n0,
+                       n1, n2, n_inner, threads, device, stream);
 }
 
 extern "C" int transport3d_large_cycle(float* lam, const float* G,
                                        const float* W0, const float* W1,
                                        const float* W2, float* ring,
                                        uint8_t* ready, const uint8_t* done,
-                                       int B, int n0, int n1, int n2,
-                                       int n_inner, int threads, int device,
-                                       void* stream) {
-  return launch<true>(lam, G, W0, W1, W2, ring, ready, done, B, n0, n1, n2,
-                      n_inner, threads, device, stream);
+                                       unsigned long long* count, int B,
+                                       int n0, int n1, int n2, int n_inner,
+                                       int threads, int device, void* stream) {
+  return launch<true>(lam, G, W0, W1, W2, ring, ready, done, count, B, n0, n1,
+                      n2, n_inner, threads, device, stream);
 }

@@ -429,7 +429,7 @@ def check(names: Sequence[str] = tuple(PROBLEMS), device="cuda",
                        for s in (seeds or [CHECK_BUDGET[n][0]])]:
         _, n_warmup, n_steps = CHECK_BUDGET[name]
         profile.reset()
-        c0 = profile.counts()     # the 2-D kernels' cycles keep counting
+        c0 = profile.counts()     # the kernels' field cycles keep counting
         t0 = time.perf_counter()
         z, stats = z_scores(name, load_golden(name), seed, n_warmup, n_steps,
                             device=device, use_pallas=route, rng=rng)

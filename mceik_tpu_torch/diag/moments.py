@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from mceik_tpu_torch.io.trace import device_tensor
 from mceik_tpu_torch.utils import tree_leaves, tree_map
 
 
@@ -52,8 +53,7 @@ def welford_update_batch(w: Welford, x: Any, axis: int = 0) -> Welford:
     """Merge a batch of samples (e.g. every chain's position) into a running
     accumulator with a scalar count (Chan parallel merge)."""
     leaf = tree_leaves(x)[0]
-    nb = torch.tensor(float(leaf.shape[axis]), dtype=torch.float32,
-                      device=leaf.device)
+    nb = device_tensor(float(leaf.shape[axis]), torch.float32, leaf.device)
     n_new = w.count + nb
 
     def merge_mean(mean, xi):

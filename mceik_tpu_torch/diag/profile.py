@@ -31,10 +31,11 @@ mutation steps) over the whole population: ``--warm`` stages, then
 the same particles (its bisection syncs the device once per probe), then
 ``--steps`` stages traced.
 
-Prints one JSON line: steps/s, the kernels' launches per step and, for the
-2-D kernels, whose one launch runs every field's whole solve, the cycles
-they counted per step (summed over fields: ``sweep2d_field_cycles``,
-``transport2d_field_cycles``) and K3's launches of its block route
+Prints one JSON line: steps/s, the kernels' launches per step and the
+cycles each counted per step, summed over fields
+(``sweep3d_cycle_field_cycles``, ``sweep2d_field_cycles``, ...: one launch
+of a 2-D kernel runs every field's whole solve, one of K1, K4 or K5 one
+cycle of the fields not done), K3's launches of its block route
 (``sweep2d_block_launches``), the device's busy and idle share of the
 traced window (kernel and copy intervals merged), and device time by kernel
 name. Needs a CUDA device: a measurement path does not fall back to the
@@ -113,9 +114,10 @@ def kernels():
 
 
 def counts():
-    """Every kernel's launches, and the 2-D kernels' cycles summed over
-    fields as the kernels count them (one launch of K3 or K6 runs every
-    field's whole solve; one launch of K1, K4 or K5 is one cycle)."""
+    """Every kernel's launches, and its cycles summed over fields as the
+    kernel counts them (one launch of K3 or K6 runs every field's whole
+    solve; one launch of K1, K4 or K5 is one cycle of the fields not
+    done)."""
     out = {}
     for name, k in kernels().items():
         out[name] = k.launches
@@ -127,8 +129,8 @@ def counts():
 
 
 def reset():
-    """Every kernel's launch counts to 0 (the 2-D kernels' field cycles go
-    on counting: read them as the difference of two :func:`counts`)."""
+    """Every kernel's launch counts to 0 (the field cycles go on counting:
+    read them as the difference of two :func:`counts`)."""
     for k in kernels().values():
         k.launches = 0
         if hasattr(k, "block_launches"):

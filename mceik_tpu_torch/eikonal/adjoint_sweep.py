@@ -33,6 +33,7 @@ from mceik_tpu_torch.eikonal.godunov import local_solve, neighbor_min, shift_fil
 from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, on_active_fields,
                                            seed_source)
 from mceik_tpu_torch.grid import Grid
+from mceik_tpu_torch.io.trace import device_tensor, host_bool, span
 
 # A cycle residual above this multiple of the first cycle's marks the
 # field diverged (reference: adjoint_sweep.DIVERGENCE_FACTOR).
@@ -181,7 +182,7 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
     B = g.shape[0]
     dev = g.device
     g_scale = g.abs().flatten(1).amax(1)
-    tol_eff = torch.tensor(tol, dtype=torch.float32, device=dev) * (1e-3 + g_scale)
+    tol_eff = device_tensor(tol, torch.float32, dev) * (1e-3 + g_scale)
     lam = g
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     diverged = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -202,7 +203,7 @@ def transport_solve(g: torch.Tensor, wsigned: Sequence[torch.Tensor],
         diverged = diverged | div
         done = done | div | conv
         lam = lam_new
-        if bool(done.all()):
+        if host_bool(done.all()):
             break
     lam = torch.where(diverged.reshape((B,) + (1,) * (g.ndim - 1)),
                       torch.full_like(lam, float("nan")), lam)
@@ -221,7 +222,7 @@ def transport_solve_fields_plain(g: torch.Tensor,
     :func:`transport_solve`'s, one cycle per iteration."""
     out = g.clone()
     cycles = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
-    tol32 = torch.tensor(tol, dtype=torch.float32, device=g.device)
+    tol32 = device_tensor(tol, torch.float32, g.device)
     for b in range(g.shape[0]):
         g_b = g[b:b + 1]
         w_b = tuple(w[b:b + 1] for w in wsigned)
@@ -233,11 +234,11 @@ def transport_solve_fields_plain(g: torch.Tensor,
             d0 = delta if d0 is None else d0
             lam = lam_new
             cycles[b] = c + 1
-            if not bool(torch.isfinite(delta)) or bool(
+            if not host_bool(torch.isfinite(delta)) or host_bool(
                     delta > DIVERGENCE_FACTOR * d0):
                 diverged = True
                 break
-            if not bool(delta > tol_eff):
+            if not host_bool(delta > tol_eff):
                 break
         out[b] = float("nan") if diverged else lam[0]
     return out, cycles
@@ -276,11 +277,12 @@ def transport_solve_batched(g: torch.Tensor, T: torch.Tensor, s_b: torch.Tensor,
     # The kernels' modules import this one for the plain cycle.
     from mceik_tpu_torch.eikonal import cuda_transport
 
-    ws = batch_weights(T, s_b, srcs, grid, config.seed_radius)
-    g = g.contiguous()
-    if impl == "xla":
-        return transport_solve(g, ws, config.tol, config.max_iters,
-                               config.n_inner, cycle=transport_cycle_plain)
-    return cuda_transport.solve(g, ws, config.tol, config.max_iters,
-                                config.n_inner,
-                                cycles_per_iter=CYCLES_PER_ITER[impl])
+    with span("mceik.adjoint.transport"):
+        ws = batch_weights(T, s_b, srcs, grid, config.seed_radius)
+        g = g.contiguous()
+        if impl == "xla":
+            return transport_solve(g, ws, config.tol, config.max_iters,
+                                   config.n_inner, cycle=transport_cycle_plain)
+        return cuda_transport.solve(g, ws, config.tol, config.max_iters,
+                                    config.n_inner,
+                                    cycles_per_iter=CYCLES_PER_ITER[impl])

@@ -20,6 +20,7 @@ from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
                                            solve_route, source_scalars,
                                            sweep_cycle_plain, sweep_solve)
 from mceik_tpu_torch.grid import Grid
+from mceik_tpu_torch.io.trace import span
 
 
 def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
@@ -69,16 +70,17 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
         raise ValueError(f"slowness {tuple(s.shape)} vs {B} sources on grid "
                          f"{grid.shape}")
     s = s.contiguous()
-    T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
-    if config.method == "jacobi":
-        return jacobi_solve(T0, frozen, s, grid.spacing, config.tol,
-                            config.max_iters)
-    if impl == "xla":
-        return sweep_solve(T0, seed_floor(T0, frozen), s, grid.spacing,
-                           config.tol, config.max_iters, config.n_inner,
-                           cycle=sweep_cycle_plain)
-    scal = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
-    return cuda_sweep.solve(T0, s, scal, grid.spacing, config.tol,
-                            config.max_iters, config.n_inner,
-                            seed_radius=config.seed_radius,
-                            cycles_per_iter=CYCLES_PER_ITER[impl])
+    with span("mceik.eikonal.solve"):
+        T0, frozen = seed_source(s, srcs, grid, config.seed_radius)
+        if config.method == "jacobi":
+            return jacobi_solve(T0, frozen, s, grid.spacing, config.tol,
+                                config.max_iters)
+        if impl == "xla":
+            return sweep_solve(T0, seed_floor(T0, frozen), s, grid.spacing,
+                               config.tol, config.max_iters, config.n_inner,
+                               cycle=sweep_cycle_plain)
+        scal = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
+        return cuda_sweep.solve(T0, s, scal, grid.spacing, config.tol,
+                                config.max_iters, config.n_inner,
+                                seed_radius=config.seed_radius,
+                                cycles_per_iter=CYCLES_PER_ITER[impl])

@@ -38,9 +38,10 @@ from typing import Optional, Sequence
 import torch
 
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
-                                                MAX_THREADS, NvccKernel,
-                                                check_fields, done_flags,
-                                                launch_config, launch_threads)
+                                                MAX_THREADS, FieldCycles,
+                                                NvccKernel, check_fields,
+                                                done_flags, launch_config,
+                                                launch_threads)
 from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
 from mceik_tpu_torch.eikonal.solve import (sweep_seeded_cycle_plain,
                                            sweep_solve)
@@ -80,15 +81,17 @@ def sweep3d_limit() -> str:
             "thread-block-cluster kernel, later work")
 
 
-class Sweep3dKernel(NvccKernel):
+class Sweep3dKernel(NvccKernel, FieldCycles):
     """K1 built from ``csrc/sweep3d.cu`` (or ``source``), with its launch
-    count."""
+    count and its field-cycles (one per field not done, per launch, counted
+    by the kernel)."""
 
     def __init__(self, source: Path = SOURCE):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(source, "sweep3d_cycle",
-                         [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci,
-                          ctypes.c_float, ci, ci, vp])
+        NvccKernel.__init__(self, source, "sweep3d_cycle",
+                            [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci,
+                             ci, ctypes.c_float, ci, ci, vp])
+        FieldCycles.__init__(self)
 
     def __call__(self, T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
                  spacing: Sequence[float], n_inner: int,
@@ -127,8 +130,9 @@ class Sweep3dKernel(NvccKernel):
                               device=dev)
         threads, index, stream = launch_config(T.shape, dev)
         rc = fn(out.data_ptr(), s.data_ptr(), scal.data_ptr(),
-                scratch.data_ptr(), done.data_ptr(), B, n0, n1, n2, consts,
-                iso, int(n_inner), radius, threads, index, stream)
+                scratch.data_ptr(), done.data_ptr(),
+                self.counter(dev).data_ptr(), B, n0, n1, n2, consts, iso,
+                int(n_inner), radius, threads, index, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1

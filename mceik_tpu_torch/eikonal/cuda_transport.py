@@ -41,7 +41,8 @@ import torch
 from mceik_tpu_torch.eikonal.adjoint_sweep import (transport_cycle_plain,
                                                    transport_solve)
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
-                                                MAX_THREADS, NvccKernel,
+                                                MAX_THREADS, FieldCycles,
+                                                NvccKernel,
                                                 check_fields, done_flags,
                                                 launch_config,
                                                 max_plane_nodes, plane_limit,
@@ -60,19 +61,21 @@ LARGE_NODES = 20
 RING_OPERANDS = 5
 
 
-class Transport3dKernel(NvccKernel):
+class Transport3dKernel(NvccKernel, FieldCycles):
     """The transport-cycle entry point ``{name}_cycle`` of
     ``csrc/transport3d.cu`` (or ``source``), holding ``n_planes`` haloed
     fp32 planes in shared memory and up to ``max_nodes`` nodes per plane,
-    with its own launch count (by default K4)."""
+    with its own launch count and field-cycles (one per field not done, per
+    launch, counted by the kernel; by default K4)."""
 
     def __init__(self, name: str = "transport3d", n_planes: int = 11,
                  max_nodes: int = REG_NODES * MAX_THREADS,
                  source: Path = SOURCE):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(source, f"{name}_cycle",
-                         [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                          ci, ci, vp])
+        NvccKernel.__init__(self, source, f"{name}_cycle",
+                            [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                             ci, ci, ci, ci, vp])
+        FieldCycles.__init__(self)
         # The ring's z-planes per operand for n2, from the same library; and
         # the library's own size rules, which tests hold to fits().
         self.ring_planes = NvccKernel(source, f"{name}_ring_planes", [ci])
@@ -148,7 +151,8 @@ class Transport3dKernel(NvccKernel):
         rc = fn(out.data_ptr(), g.data_ptr(), wsigned[0].data_ptr(),
                 wsigned[1].data_ptr(), wsigned[2].data_ptr(), buf.data_ptr(),
                 None if ready is None else ready.data_ptr(), done.data_ptr(),
-                B, n0, n1, n2, int(n_inner), threads, index, stream)
+                self.counter(dev).data_ptr(), B, n0, n1, n2, int(n_inner),
+                threads, index, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1

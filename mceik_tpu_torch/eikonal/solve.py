@@ -47,6 +47,7 @@ import torch
 from mceik_tpu_torch.eikonal.godunov import (BIG, godunov_update,
                                              local_solve, neighbor_min)
 from mceik_tpu_torch.grid import Grid, sample_linear
+from mceik_tpu_torch.io.trace import host_bool, host_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,10 +210,11 @@ def on_active_fields(cycle: Callable, done: Optional[torch.Tensor],
     """``cycle(x, *operands)`` on the fields whose ``done`` flag is clear;
     done fields of ``x`` come back unchanged. Operands are batches or tuples
     of batches with the leading field axis of ``x``."""
-    if done is None or not bool(done.any()):
+    if done is None or not host_bool(done.any()):
         return cycle(x, *operands)
-    if bool(done.all()):
+    if host_bool(done.all()):
         return x.clone()
+    host_sync()   # nonzero reads its output's size to the host
     idx = torch.nonzero(~done).squeeze(1)
     pick = [tuple(t[idx] for t in a) if isinstance(a, tuple) else a[idx]
             for a in operands]
@@ -284,7 +286,7 @@ def sweep_solve(T0, floor, s, spacing: Sequence[float], tol: float,
         delta = (T_new - T).abs().flatten(1).amax(dim=1)
         done = done | ~(delta > tol)
         T = T_new
-        if bool(done.all()):
+        if host_bool(done.all()):
             break
     return (T, cycles) if return_cycles else T
 
@@ -335,7 +337,7 @@ def sweep_solve_fields_plain(T0, s, scal, spacing: Sequence[float],
             delta = (T_new - T).abs().amax()
             T = T_new
             cycles[b] = c + 1
-            if not bool(delta > tol):
+            if not host_bool(delta > tol):
                 break
         out[b] = T[0]
     return out, cycles

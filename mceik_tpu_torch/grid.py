@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mceik_tpu_torch.io.trace import device_tensor
+
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
@@ -60,15 +62,15 @@ class Grid:
     def to_index_coords(self, xyz: torch.Tensor) -> torch.Tensor:
         """Physical coords ``(..., ndim)`` -> fractional index coords."""
         xyz = torch.as_tensor(xyz)
-        o = torch.tensor(self.origin, dtype=xyz.dtype, device=xyz.device)
-        h = torch.tensor(self.spacing, dtype=xyz.dtype, device=xyz.device)
+        o = device_tensor(self.origin, xyz.dtype, xyz.device)
+        h = device_tensor(self.spacing, xyz.dtype, xyz.device)
         return (xyz - o) / h
 
     def to_physical_coords(self, idx: torch.Tensor) -> torch.Tensor:
         """Fractional index coords ``(..., ndim)`` -> physical coords."""
         idx = torch.as_tensor(idx)
-        o = torch.tensor(self.origin, dtype=idx.dtype, device=idx.device)
-        h = torch.tensor(self.spacing, dtype=idx.dtype, device=idx.device)
+        o = device_tensor(self.origin, idx.dtype, idx.device)
+        h = device_tensor(self.spacing, idx.dtype, idx.device)
         return o + idx * h
 
     def node_coords(self) -> np.ndarray:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from mceik_tpu_torch.grid import Grid
+from mceik_tpu_torch.io.trace import span
 
 
 @dataclasses.dataclass
@@ -93,10 +94,11 @@ def slowness_from_u(u: torch.Tensor, grid: Grid,
     if any(a > b for a, b in zip(x.shape[1:], grid.shape)):
         raise ValueError(f"inversion grid {tuple(x.shape[1:])} is finer than "
                          f"the forward grid {grid.shape}")
-    up = _Upsample.apply(x, tuple(grid.shape))
-    if not batched:
-        up = up[0]
-    return background * torch.exp(up)
+    with span("mceik.forward.slowness"):
+        up = _Upsample.apply(x, tuple(grid.shape))
+        if not batched:
+            up = up[0]
+        return background * torch.exp(up)
 
 
 def _box(grid: Grid, margin: float, like: torch.Tensor):

@@ -43,6 +43,7 @@ from mceik_tpu_torch.forward.predict import (interp_tables, predict_events,
 from mceik_tpu_torch.forward.tables_cache import cached_traveltime_tables
 from mceik_tpu_torch.grid import Grid, sample_linear
 from mceik_tpu_torch.io.loaders import load_slowness
+from mceik_tpu_torch.io.trace import span
 from mceik_tpu_torch.model.data import EventData, TomoData
 from mceik_tpu_torch.model.params import (Params, box_from_raw, box_logjac,
                                           slowness_from_u)
@@ -258,7 +259,8 @@ def build_posterior(cfg: ModelCfg, data, grid: Grid,
         return lik_term(r, mask, sigma_of(params))
 
     def logpost(params: Params) -> torch.Tensor:
-        return log_prior(params) + log_lik(params)
+        with span("mceik.posterior.logpost"):
+            return log_prior(params) + log_lik(params)
 
     def init_noise(gen, n_chains: int, jitter: float):
         """``(log_sigma, noise_z)`` chain starts. Spike-slab chains start
@@ -488,10 +490,10 @@ def value_and_grad(logpost_fn: Callable[[Params], torch.Tensor]):
     A chain whose transport solve diverged gets a NaN gradient."""
 
     def vag(params):
-        with torch.enable_grad():
+        with span("mceik.posterior.value_and_grad"), torch.enable_grad():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             lp = logpost_fn(p)
             grads = iter(torch.autograd.grad(lp.sum(), tree_leaves(p)))
-        return lp.detach(), tree_map(lambda _: next(grads), p)
+            return lp.detach(), tree_map(lambda _: next(grads), p)
 
     return vag

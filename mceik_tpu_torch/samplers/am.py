@@ -14,6 +14,7 @@ from typing import Any, Callable
 import torch
 
 from mceik_tpu_torch.diag.moments import Welford, welford_init, welford_update_batch
+from mceik_tpu_torch.io.trace import device_tensor
 from mceik_tpu_torch.samplers.base import MHState
 from mceik_tpu_torch.samplers.hmc import DualAveraging, dual_averaging_update
 from mceik_tpu_torch.utils import tree_leaves, tree_map, tree_size, tree_where
@@ -29,7 +30,7 @@ class AMHyper:
 
 
 def _scalar(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return device_tensor(x, torch.float32, device)
 
 
 def init_hyper(scales: Any, step_size: float, example_params: Any,

@@ -17,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from mceik_tpu_torch.io.trace import device_tensor
 from mceik_tpu_torch.samplers.base import MHState
 from mceik_tpu_torch.samplers.hmc import DualAveraging, dual_averaging_update
 from mceik_tpu_torch.utils import tree_leaves, tree_map, tree_where
@@ -58,7 +59,7 @@ def _unravel_fn(example: Any, batch_dims: int = 0) -> Callable:
 
 
 def _scalar(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return device_tensor(x, torch.float32, device)
 
 
 # Haario regularization of the pooled covariance, relative to the prior

@@ -27,7 +27,13 @@ import torch
 
 from mceik_tpu_torch.diag.moments import Welford, welford_init, welford_update
 from mceik_tpu_torch.dist.mesh import Mesh, all_gather0, draw_rows, gather_chains
+from mceik_tpu_torch.io.trace import span
 from mceik_tpu_torch.utils import tree_map, tree_random_normal
+
+
+# The span of run_mcmc's bookkeeping between steps: the Welford update and
+# the draws kept each step, the traces stacked and gathered at the end.
+RECORD = "mceik.mcmc.record"
 
 
 @dataclasses.dataclass
@@ -73,8 +79,9 @@ def draw_normal_uniform(gen: torch.Generator, states: MHState):
 
 def _one_step(kernel, states: MHState, hyper, gen: torch.Generator,
               mesh: Mesh):
-    draw = getattr(kernel, "draw", draw_normal_uniform)
-    return kernel(states, hyper, *draw_rows(draw, gen, states, mesh))
+    with span("mceik.mcmc.step"):
+        draw = getattr(kernel, "draw", draw_normal_uniform)
+        return kernel(states, hyper, *draw_rows(draw, gen, states, mesh))
 
 
 def _stack(trees):
@@ -130,24 +137,27 @@ def run_mcmc(kernel: Callable, adapt_fn: Optional[Callable],
         sums = None
         for _ in range(thin):
             states, info = _one_step(kernel, states, hyper, gen, mesh)
-            welford = welford_update(welford, track_fn(states.params))
-            sums = info if sums is None else {k: sums[k] + v
-                                              for k, v in info.items()}
-        draws.append(collect_fn(states.params))
-        lps.append(states.logpost)
-        infos.append({k: v / thin for k, v in sums.items()})
+            with span(RECORD):
+                welford = welford_update(welford, track_fn(states.params))
+                sums = info if sums is None else {k: sums[k] + v
+                                                  for k, v in info.items()}
+        with span(RECORD):
+            draws.append(collect_fn(states.params))
+            lps.append(states.logpost)
+            infos.append({k: v / thin for k, v in sums.items()})
 
-    dev = states.logpost.device
-    empty = torch.zeros((0, n_chains * mesh.world), dtype=torch.float32,
-                        device=dev)
-    # The traces of every rank's chains: (n_collect, C) on every rank.
-    gather1 = lambda x: all_gather0(x.movedim(1, 0), mesh).movedim(0, 1)
-    info_trace = _stack(infos) if infos else {}
-    info_trace = {k: gather1(v) for k, v in info_trace.items()}
-    return MCMCResult(
-        states=states, hyper=hyper, welford=welford,
-        samples=tree_map(gather1, _stack(draws)) if draws else None,
-        logpost_trace=gather1(torch.stack(lps)) if lps else empty,
-        accept_trace=info_trace.get("accept_prob", empty),
-        info_trace=info_trace,
-    )
+    with span(RECORD):
+        dev = states.logpost.device
+        empty = torch.zeros((0, n_chains * mesh.world), dtype=torch.float32,
+                            device=dev)
+        # The traces of every rank's chains: (n_collect, C) on every rank.
+        gather1 = lambda x: all_gather0(x.movedim(1, 0), mesh).movedim(0, 1)
+        info_trace = _stack(infos) if infos else {}
+        info_trace = {k: gather1(v) for k, v in info_trace.items()}
+        return MCMCResult(
+            states=states, hyper=hyper, welford=welford,
+            samples=tree_map(gather1, _stack(draws)) if draws else None,
+            logpost_trace=gather1(torch.stack(lps)) if lps else empty,
+            accept_trace=info_trace.get("accept_prob", empty),
+            info_trace=info_trace,
+        )

@@ -24,6 +24,7 @@ from typing import Any, Callable
 import torch
 
 from mceik_tpu_torch.diag.moments import Welford, welford_init, welford_update_batch
+from mceik_tpu_torch.io.trace import device_tensor
 from mceik_tpu_torch.model.posterior import value_and_grad
 from mceik_tpu_torch.samplers.base import MHState
 from mceik_tpu_torch.utils import (per_chain, tree_axpy, tree_dot, tree_leaves,
@@ -44,7 +45,7 @@ def dual_averaging_update(da: DualAveraging, accept_prob: torch.Tensor, t,
                           t0: float = 10.0,
                           kappa: float = 0.75) -> DualAveraging:
     """One update from the pooled acceptance at warmup step ``t`` (0-based)."""
-    tt = torch.as_tensor(t, dtype=torch.float32, device=da.h_bar.device) + 1.0
+    tt = device_tensor(t, torch.float32, da.h_bar.device) + 1.0
     eta = 1.0 / (tt + t0)
     h_bar = (1.0 - eta) * da.h_bar + eta * (target - accept_prob)
     log_eps = da.mu - torch.sqrt(tt) / gamma * h_bar

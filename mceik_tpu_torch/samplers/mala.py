@@ -28,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from mceik_tpu_torch.io.trace import host_sync
 from mceik_tpu_torch.model.posterior import value_and_grad
 from mceik_tpu_torch.samplers.am_full import (AMFullHyper, _pooled_cov,
                                               _ravel, _unravel_fn,
@@ -74,6 +75,7 @@ def _chol_unmasked(hyper: AMFullHyper) -> torch.Tensor:
     """Cholesky of the pooled covariance with a UNIT diagonal at frozen
     coordinates (full-covariance AM zeroes those columns instead; MALA's
     whitened algebra needs L invertible)."""
+    host_sync()   # the factor's check of its result
     return torch.linalg.cholesky(_pooled_cov(hyper))
 
 

@@ -51,7 +51,8 @@ from mceik_tpu_torch.dist.mesh import (Mesh, all_gather0, chain_mesh,
 from mceik_tpu_torch.dist.resample import (ess_from_log_weights, resample_tree,
                                            systematic_indices)
 from mceik_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
-from mceik_tpu_torch.io.trace import profiler, write_trace
+from mceik_tpu_torch.io.trace import (device_tensor, host_float, profiler,
+                                      span, write_trace)
 from mceik_tpu_torch.model.posterior import noise_gibbs_draws
 from mceik_tpu_torch.utils import (tree_leaves, tree_map, tree_random_normal,
                                    tree_where)
@@ -77,7 +78,7 @@ class SMCResult:
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return device_tensor(x, torch.float32, device)
 
 
 def init_particles(posterior, gen: torch.Generator, n_particles: int,
@@ -85,10 +86,12 @@ def init_particles(posterior, gen: torch.Generator, n_particles: int,
     """``n_particles`` exact prior draws with their log prior and log
     likelihood (one batched solve of the population; sharded, of this
     rank's rows of it)."""
-    params = shard_chains(posterior.sample_prior(gen, n_particles), mesh)
-    ll = posterior.log_lik(params)
-    return SMCState(params=params, log_prior=posterior.log_prior(params),
-                    log_lik=ll, log_step=_f32(math.log(step_size), ll.device))
+    with span("mceik.smc.init"):
+        params = shard_chains(posterior.sample_prior(gen, n_particles), mesh)
+        ll = posterior.log_lik(params)
+        return SMCState(params=params, log_prior=posterior.log_prior(params),
+                        log_lik=ll,
+                        log_step=_f32(math.log(step_size), ll.device))
 
 
 def mutate(state: SMCState, beta: float, scales: Any, log_prior_fn: Callable,
@@ -108,29 +111,30 @@ def mutate(state: SMCState, beta: float, scales: Any, log_prior_fn: Callable,
     Sharded, the draws are this rank's rows and the acceptance is pooled
     over every rank's particles. Returns the new state and the mean pooled
     acceptance over the K steps."""
-    b = _f32(beta, state.log_lik.device)
-    params, lp_prior, lp_lik, log_step = (state.params, state.log_prior,
-                                          state.log_lik, state.log_step)
-    pooled_all = []
-    for k, (normal, uniform) in enumerate(zip(normals, uniforms)):
-        step = torch.exp(log_step)
-        prop = tree_map(lambda x, e, s: x + step * s * e, params, normal,
-                        scales)
-        prop_prior = log_prior_fn(prop)
-        prop_lik = log_lik_fn(prop)
-        log_ratio = (prop_prior + b * prop_lik) - (lp_prior + b * lp_lik)
-        accept_prob = torch.exp(torch.clamp(log_ratio, max=0.0))
-        accept = torch.log(uniform) < log_ratio
-        params = tree_where(accept, prop, params)
-        lp_prior = torch.where(accept, prop_prior, lp_prior)
-        lp_lik = torch.where(accept, prop_lik, lp_lik)
-        if gibbs_fn is not None:
-            params, lp_prior, lp_lik = gibbs_fn(params, *gibbs_draws[k], b)
-        pooled = all_gather0(accept_prob, mesh).mean()
-        log_step = log_step + 0.3 * (pooled - target_accept)
-        pooled_all.append(pooled)
-    return (SMCState(params=params, log_prior=lp_prior, log_lik=lp_lik,
-                     log_step=log_step), torch.stack(pooled_all).mean())
+    with span("mceik.smc.mutate"):
+        b = _f32(beta, state.log_lik.device)
+        params, lp_prior, lp_lik, log_step = (state.params, state.log_prior,
+                                              state.log_lik, state.log_step)
+        pooled_all = []
+        for k, (normal, uniform) in enumerate(zip(normals, uniforms)):
+            step = torch.exp(log_step)
+            prop = tree_map(lambda x, e, s: x + step * s * e, params, normal,
+                            scales)
+            prop_prior = log_prior_fn(prop)
+            prop_lik = log_lik_fn(prop)
+            log_ratio = (prop_prior + b * prop_lik) - (lp_prior + b * lp_lik)
+            accept_prob = torch.exp(torch.clamp(log_ratio, max=0.0))
+            accept = torch.log(uniform) < log_ratio
+            params = tree_where(accept, prop, params)
+            lp_prior = torch.where(accept, prop_prior, lp_prior)
+            lp_lik = torch.where(accept, prop_lik, lp_lik)
+            if gibbs_fn is not None:
+                params, lp_prior, lp_lik = gibbs_fn(params, *gibbs_draws[k], b)
+            pooled = all_gather0(accept_prob, mesh).mean()
+            log_step = log_step + 0.3 * (pooled - target_accept)
+            pooled_all.append(pooled)
+        return (SMCState(params=params, log_prior=lp_prior, log_lik=lp_lik,
+                         log_step=log_step), torch.stack(pooled_all).mean())
 
 
 def _incremental(log_lik: torch.Tensor, beta_prev: float,
@@ -142,7 +146,8 @@ def _incremental(log_lik: torch.Tensor, beta_prev: float,
 
 
 def ess_at(log_lik: torch.Tensor, beta_prev: float, beta: float) -> float:
-    return float(ess_from_log_weights(_incremental(log_lik, beta_prev, beta)))
+    return host_float(ess_from_log_weights(
+        _incremental(log_lik, beta_prev, beta)))
 
 
 def reweight_resample(state: SMCState, beta_prev: float, beta: float,
@@ -152,12 +157,14 @@ def reweight_resample(state: SMCState, beta_prev: float, beta: float,
     the uniform offset ``u``; returns the resampled state (sharded, this
     rank's rows) and the stage's log-evidence increment ``logmeanexp(lw)``
     over the global population."""
-    lw = all_gather0(_incremental(state.log_lik, beta_prev, beta), mesh)
-    log_inc = torch.logsumexp(lw, 0) - math.log(lw.shape[0])
-    idx = systematic_indices(lw, u)
-    rows = resample_tree({"params": state.params, "log_prior": state.log_prior,
-                          "log_lik": state.log_lik}, idx, mesh)
-    return SMCState(log_step=state.log_step, **rows), log_inc
+    with span("mceik.smc.resample"):
+        lw = all_gather0(_incremental(state.log_lik, beta_prev, beta), mesh)
+        log_inc = torch.logsumexp(lw, 0) - math.log(lw.shape[0])
+        idx = systematic_indices(lw, u)
+        rows = resample_tree({"params": state.params,
+                              "log_prior": state.log_prior,
+                              "log_lik": state.log_lik}, idx, mesh)
+        return SMCState(log_step=state.log_step, **rows), log_inc
 
 
 def next_beta(log_lik: torch.Tensor, beta_prev: float, target_ess: float,
@@ -165,16 +172,17 @@ def next_beta(log_lik: torch.Tensor, beta_prev: float, target_ess: float,
     """Largest beta <= 1 whose incremental weights keep ESS >= target
     (bisection on the host, one device sync per probe), and at least
     ``beta_prev + 1e-6``."""
-    if ess_at(log_lik, beta_prev, 1.0) >= target_ess:
-        return 1.0
-    lo, hi = beta_prev, 1.0
-    for _ in range(n_bisect):
-        mid = 0.5 * (lo + hi)
-        if ess_at(log_lik, beta_prev, mid) >= target_ess:
-            lo = mid
-        else:
-            hi = mid
-    return max(lo, beta_prev + 1e-6)
+    with span("mceik.smc.next_beta"):
+        if ess_at(log_lik, beta_prev, 1.0) >= target_ess:
+            return 1.0
+        lo, hi = beta_prev, 1.0
+        for _ in range(n_bisect):
+            mid = 0.5 * (lo + hi)
+            if ess_at(log_lik, beta_prev, mid) >= target_ess:
+                lo = mid
+            else:
+                hi = mid
+        return max(lo, beta_prev + 1e-6)
 
 
 def stage(posterior, state: SMCState, beta: float, gen: torch.Generator,
@@ -184,30 +192,32 @@ def stage(posterior, state: SMCState, beta: float, gen: torch.Generator,
     ess, log_inc, accept)``, the last three as floats (the stage is done on
     the device when it returns). Sharded, ``state`` is this rank's rows
     and the ladder follows the global population."""
-    dev = state.log_lik.device
-    ll = all_gather0(state.log_lik, mesh)
-    n = ll.shape[0]
-    beta_new = next_beta(ll, beta, target_ess)
-    ess = ess_at(ll, beta, beta_new)
-    u = torch.rand((), generator=gen, dtype=torch.float32, device=dev)
-    state, log_inc = reweight_resample(state, beta, beta_new, u, mesh)
-    normals = draw_rows(lambda g, p: [tree_random_normal(g, p)
-                                      for _ in range(n_mutation_steps)],
-                        gen, state.params, mesh)
-    uniforms = torch.rand((n_mutation_steps, n), generator=gen,
-                          dtype=torch.float32, device=dev)
-    uniforms = shard_chains(uniforms.T, mesh).T
-    gibbs = getattr(posterior, "noise_gibbs", None)
-    gibbs_draws = ()
-    if gibbs is not None:
-        gibbs_draws = draw_rows(lambda g, p: [noise_gibbs_draws(g, p)
-                                              for _ in range(n_mutation_steps)],
-                                gen, state.params, mesh)
-    state, acc = mutate(state, beta_new, posterior.prior_scales,
-                        posterior.log_prior, posterior.log_lik, normals,
-                        uniforms, gibbs_fn=gibbs, gibbs_draws=gibbs_draws,
-                        mesh=mesh)
-    return state, beta_new, ess, float(log_inc), float(acc)
+    with span("mceik.smc.stage"):
+        dev = state.log_lik.device
+        ll = all_gather0(state.log_lik, mesh)
+        n = ll.shape[0]
+        beta_new = next_beta(ll, beta, target_ess)
+        ess = ess_at(ll, beta, beta_new)
+        u = torch.rand((), generator=gen, dtype=torch.float32, device=dev)
+        state, log_inc = reweight_resample(state, beta, beta_new, u, mesh)
+        normals = draw_rows(lambda g, p: [tree_random_normal(g, p)
+                                          for _ in range(n_mutation_steps)],
+                            gen, state.params, mesh)
+        uniforms = torch.rand((n_mutation_steps, n), generator=gen,
+                              dtype=torch.float32, device=dev)
+        uniforms = shard_chains(uniforms.T, mesh).T
+        gibbs = getattr(posterior, "noise_gibbs", None)
+        gibbs_draws = ()
+        if gibbs is not None:
+            gibbs_draws = draw_rows(
+                lambda g, p: [noise_gibbs_draws(g, p)
+                              for _ in range(n_mutation_steps)],
+                gen, state.params, mesh)
+        state, acc = mutate(state, beta_new, posterior.prior_scales,
+                            posterior.log_prior, posterior.log_lik, normals,
+                            uniforms, gibbs_fn=gibbs, gibbs_draws=gibbs_draws,
+                            mesh=mesh)
+        return state, beta_new, ess, host_float(log_inc), host_float(acc)
 
 
 def run_smc(posterior, gen: torch.Generator, n_particles: int,

@@ -6,7 +6,9 @@ it; there, skip tests/conftest.py (which configures JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import functools
 import math
+import types
 
 import numpy as np
 import pytest
@@ -176,6 +178,53 @@ def test_transport_kernel_solve_matches_plain_solve(dev):
         out = transport_solve(g, ws, 1e-7, 100, 2, cycle=cycle)
         assert cuda_transport.TRANSPORT3D.launches > launches
         assert torch.equal(_bits(out), _bits(ref))
+
+
+def _no_counter(dev):
+    """A counter whose pointer is null: the kernel then counts nothing."""
+    return types.SimpleNamespace(data_ptr=lambda: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["K1", "K4", "K5"])
+def test_field_cycles_count_each_field_not_done(dev, monkeypatch, name):
+    """Over a batch solve, K1's, K4's or K5's ``field_cycles()`` rises by
+    the sum of the solve's per-field cycle counts (each launch counts the
+    fields not done), below launches x fields where the fields converge
+    apart; with a null counter the kernel counts nothing and the outputs
+    are the same bits."""
+    srcs = [[2.0, 3.0, 4.0], [30.0, 20.0, 2.0], [15.0, 12.0, 8.0],
+            [31.0, 23.0, 15.0]]
+    if name == "K1":
+        kernel = cuda_sweep.SWEEP3D
+        g_, s, _, T0, scal = _batch(dev, (32, 24, 16), (1.0, 1.0, 1.0), srcs,
+                                    amp=0.6)
+        cycle = functools.partial(cuda_sweep.seeded_cycle, seed_radius=3.0)
+        run = lambda: sweep_solve(T0, scal, s, g_.spacing, 1e-5, 100, 2,
+                                  cycle=cycle, return_cycles=True)
+    else:
+        ws, g = _transport_batch(dev, (32, 24, 16), (1.0, 1.0, 1.0), srcs)
+        if name == "K4":
+            kernel = cuda_transport.TRANSPORT3D
+            cycle = lambda: cuda_transport.solve_cycle(g, ws)
+        else:
+            kernel = cuda_transport.TRANSPORT3D_LARGE
+            cycle = lambda: functools.partial(cuda_transport.transport_cycle,
+                                              kernel=kernel)
+        run = lambda: transport_solve(g, ws, 1e-7, 100, 2, cycle=cycle(),
+                                      return_cycles=True)
+    c0, l0 = kernel.field_cycles(), kernel.launches
+    out, cycles = run()
+    counted, launches = kernel.field_cycles() - c0, kernel.launches - l0
+    assert counted == int(cycles.sum())
+    assert int(cycles.min()) < int(cycles.max())
+    assert counted < launches * cycles.shape[0]
+    monkeypatch.setattr(kernel, "counter", _no_counter)
+    c1 = kernel.field_cycles()
+    out2, cycles2 = run()
+    assert kernel.field_cycles() == c1
+    assert torch.equal(cycles2, cycles)
+    assert torch.equal(_bits(out2), _bits(out))
 
 
 def _random_transport(dev, B, shape, seed=12):
