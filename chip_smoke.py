@@ -10,9 +10,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build of every kernel on the main paths from the sources in the
    checkout, one ``nvcc`` per source, all started together: K1, the 3-D
-   sweep cycle with the seed floor computed in the kernel from four scalars
-   per field (``csrc/sweep3d.cu``; every 3-D route, the gridbatch one
-   included), K4, the adjoint transport cycle
+   sweep, each field's whole solve per launch, with the seed floor computed
+   in the kernel from four scalars per field (``csrc/sweep3d.cu``; every
+   3-D route, the gridbatch one included), K4, the adjoint transport cycle
    (``csrc/transport3d.cu``), K3, the 2-D sweep cycle
    (``csrc/sweep2d.cu``), K5, the adjoint transport cycle of fields
    whose planes K4 cannot hold (the second entry point of
@@ -21,9 +21,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    solve, per launch, and include ``csrc/line2d.cuh``; K3 has two routes
    (kernels) in its source, a warp per field and a CTA per field;
 3. K1 against its plain PyTorch version on the card, at the main path's
-   shapes and on edge cases (bar: bit for bit, ``torch.equal``, one cycle
-   against ``sweep_seeded_cycle_plain`` and whole solves against the plain
-   route's);
+   shapes and on edge cases (bar: bit for bit, ``torch.equal``, one cycle,
+   its solve entry cut at one cycle, against ``sweep_seeded_cycle_plain``
+   and whole solves against the plain route's);
 4. K4 against its plain version (bar: bit for bit, compared as int32 so
    that NaN and signed zeros count; one cycle and a whole solve): the
    main-path batch (16 chains x 8 sources of 64^3, cotangents of the
@@ -896,19 +896,19 @@ def main() -> int:
         return T_k
 
     def k1_cycle_pair(label, T0, s, srcs, g, ecfg, reps):
-        """One K1 cycle against the plain seeded cycle on every field, bit
-        for bit; returns (kernel's cycle, ms per launch, plain ms)."""
+        """One K1 cycle (its solve entry cut at one cycle) against the plain
+        seeded cycle on every field, bit for bit; returns (kernel's cycle,
+        ms per launch, plain ms)."""
         scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
-        done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
         launches0 = k1.launches
-        T1_k, ms_k = _timed(lambda: cuda_sweep.seeded_cycle(
-            T0, s, scal, g.spacing, ecfg.n_inner, done,
-            seed_radius=ecfg.seed_radius), reps=reps)
+        T1_k, ms_k = _timed(lambda: k1.solve(
+            T0, s, scal, g.spacing, ecfg.n_inner, 0.0, 1,
+            seed_radius=ecfg.seed_radius)[0], reps=reps)
         if k1.launches == launches0:
             raise RuntimeError(f"K1 cycle {label}: the kernel was not "
                                "launched")
         T1_p, ms_p = _timed(lambda: sweep_seeded_cycle_plain(
-            T0, s, scal, g.spacing, ecfg.n_inner, done,
+            T0, s, scal, g.spacing, ecfg.n_inner,
             seed_radius=ecfg.seed_radius))
         err = float((T1_k - T1_p).abs().max())
         print(f"K1 compare one cycle, {label} B={T0.shape[0]} grid={g.shape}: "
@@ -952,8 +952,7 @@ def main() -> int:
     T_b = compare("b (odd anisotropic non-cube)", s_b, srcs_b, g_b)
 
     # (c) mixed convergence: homogeneous fields converge in a few cycles,
-    # high-contrast ones take many more; per-field done flags must leave
-    # the early ones alone.
+    # high-contrast ones take many more; each field stops at its own.
     g_c = Grid((64, 64, 64), (1.0, 1.0, 1.0))
     n_easy = 4
     u_c = torch.cat([torch.zeros((n_easy, 4, 4, 4), device=dev),
@@ -966,17 +965,16 @@ def main() -> int:
     T_c = compare("c (mixed convergence)", s_c, srcs_c, g_c)
     T0c, _ = seed_source(s_c, srcs_c, g_c, 3.0)
     scal_c = torch.cat(source_scalars(s_c, srcs_c, g_c), dim=1).contiguous()
-    history = []
-
-    def recording_cycle(T, s, sc, sp, n_inner, done):
-        history.append(done.clone())
-        return cuda_sweep.seeded_cycle(T, s, sc, sp, n_inner, done,
-                                       seed_radius=3.0)
-
-    sweep_solve(T0c, scal_c, s_c, g_c.spacing, SOLVE_TOL, 200, 2,
-                cycle=recording_cycle)
-    cycles = (~torch.stack(history)).sum(0).tolist()
+    _, cycles = k1.solve(T0c, s_c, scal_c, g_c.spacing, 2, SOLVE_TOL, 200,
+                         seed_radius=3.0)
+    _, cycles_p = sweep_solve(
+        T0c, scal_c, s_c, g_c.spacing, SOLVE_TOL, 200, 2, return_cycles=True,
+        cycle=functools.partial(sweep_seeded_cycle_plain, seed_radius=3.0))
+    cycles = cycles.tolist()
     print(f"K1 compare c: cycles per field {cycles}")
+    if cycles != cycles_p.tolist():
+        raise RuntimeError(f"c: K1 counted cycles {cycles}, the plain host "
+                           f"loop {cycles_p.tolist()}")
     if len(set(cycles)) < 2:
         raise RuntimeError("c: every field took the same number of cycles")
     xyz = torch.as_tensor(g_c.node_coords(), dtype=torch.float32, device=dev)
@@ -1155,11 +1153,13 @@ def main() -> int:
 
     # 6. The MALA path through the CLI, at full width.
     k1.launches = k4.launches = 0
+    f1 = k1.field_cycles()
     recs, lines, wall = _run_cli(cli, [
         "run", MALA_CONFIG, *MALA_ARGS, f"io.checkpoint_path={mala_ck}",
         "io.checkpoint_every=30"])
     mala_launches = {"sweep3d_cycle": k1.launches,
                      "transport3d_cycle": k4.launches}
+    mala_k1_cycles = k1.field_cycles() - f1
     if min(mala_launches.values()) <= 0:
         raise RuntimeError(f"MALA path: a kernel was never launched "
                            f"({mala_launches})")
@@ -1448,14 +1448,16 @@ def main() -> int:
     b_k1_c3, _ = _k1_bound(T0_3, ecfg3.n_inner)
     on3 = dataclasses.replace(ecfg3, use_pallas="on")
     off3 = dataclasses.replace(ecfg3, use_pallas="off")
-    l1 = k1.launches
+    f1 = k1.field_cycles()
     T3, ms_s3k = _timed(lambda: solve_eikonal_batched(s3, srcs3, g3, on3))
-    cycles3 = (k1.launches - l1) / 2     # the warm-up call and the timed one
+    # The warm-up call and the timed one, per field.
+    cycles3 = (k1.field_cycles() - f1) / 2 / T0_3.shape[0]
     T3p, ms_s3p = _timed(lambda: solve_eikonal_batched(s3, srcs3, g3, off3))
     err_s3 = float((T3 - T3p).abs().max())
     print(f"K1 compare c3 batch: B={T0_3.shape[0]} grid={g3.shape}: solve "
           f"at tol {ecfg3.tol} max|kernel-plain| = {err_s3:.3e}, "
-          f"{cycles3:.0f} cycles, ms per solve kernel {ms_s3k:.3f}, plain "
+          f"{cycles3:.2f} cycles per field, ms per solve kernel "
+          f"{ms_s3k:.3f}, plain "
           f"{ms_s3p:.3f}")
     if not (bool(torch.isfinite(T3).all()) and torch.equal(T3, T3p)):
         raise RuntimeError(f"K1 c3: kernel solve disagrees with plain "
@@ -1608,16 +1610,17 @@ def main() -> int:
     _, ms_k1_c5, ms_k1_c5_plain = k1_cycle_pair("c5 batch", T0_5, s5, srcs5,
                                                 g5, ecfg5, reps=3)
     b_k1_c5, _ = _k1_bound(T0_5, ecfg5.n_inner)
-    l1 = k1.launches
+    f1 = k1.field_cycles()
     T5, ms_s5k = _timed(lambda: solve_eikonal_batched(
         s5, srcs5, g5, dataclasses.replace(ecfg5, use_pallas="on")))
-    cycles5 = (k1.launches - l1) / 2     # the warm-up call and the timed one
+    # The warm-up call and the timed one, per field.
+    cycles5 = (k1.field_cycles() - f1) / 2 / T0_5.shape[0]
     route5 = solve_route(g5.shape, "on", dev)
     print(f"K1 compare c5 batch: B={T0_5.shape[0]} grid={g5.shape}: kernel "
           f"solve at tol "
           f"{ecfg5.tol}, max_iters {ecfg5.max_iters}, route {route5} "
-          f"({CYCLES_PER_ITER[route5]} cycles per iteration): {cycles5:.0f} "
-          f"cycles, {ms_s5k:.3f} ms")
+          f"({CYCLES_PER_ITER[route5]} cycles per iteration): {cycles5:.2f} "
+          f"cycles per field, {ms_s5k:.3f} ms")
     if route5 != "blocked":
         raise RuntimeError(f"c5: route {route5}, not the blocked count")
     # The plain solve with the blocked route's count (two cycles per
@@ -1631,14 +1634,16 @@ def main() -> int:
         raise RuntimeError(f"K1 c5: kernel solve disagrees with plain "
                            f"({err_s5})")
     errs["sweep3d_cycle"].append(err_s5)
+    n5 = T0_5.shape[0]
     del T0_5, T5p
     # The error at the config's max_iters to the converged field (tol
     # 1e-5, no max_iters to speak of).
-    l1 = k1.launches
+    f1 = k1.field_cycles()
     T5c = solve_eikonal_batched(s5, srcs5, g5, dataclasses.replace(
         ecfg5, tol=1e-5, max_iters=300))
     gap = (T5 - T5c).abs().flatten(1).amax(1)
-    print(f"K1 c5 batch converged to tol 1e-5: {k1.launches - l1} cycles; "
+    print(f"K1 c5 batch converged to tol 1e-5: "
+          f"{(k1.field_cycles() - f1) / n5:.2f} cycles per field; "
           f"at tol {ecfg5.tol} and max_iters {ecfg5.max_iters} the "
           f"traveltimes are up to {float(gap.max()):.6f} from it (max T "
           f"{float(T5c.max()):.2f}), on {int((gap > c5.model.sigma).sum())} "
@@ -2364,11 +2369,14 @@ def main() -> int:
                             n_part * n_src4)
     print(json.dumps({"kernels": [{
         "name": "sweep3d_cycle",
+        "entry": "each field's whole solve per launch (sweep3d_solve); ms, "
+                 "plain_ms and bound_ms: one cycle (the entry cut at one)",
         "tpu_kernel": "sweep_axes012_fused, sweep_axes01_fused, sweep_axis0",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep3d.cu",
         "replaces": "mceik_tpu/eikonal/pallas_sweep.py:372, :222, :132",
         "launches": mala_launches["sweep3d_cycle"],
+        "field_cycles": mala_k1_cycles,
         "max_abs_err": max(errs["sweep3d_cycle"]),
         "ms": ms_k1,
         "plain_ms": ms_k1_plain,
@@ -2560,6 +2568,8 @@ def main() -> int:
         "c4_solve_field_cycles": k6_cycles_c4,
     }, {
         "name": "sweep3d_cycle",
+        "entry": "each field's whole solve per launch (sweep3d_solve); ms, "
+                 "plain_ms and bound_ms: one cycle (the entry cut at one)",
         "tpu_kernel": "sweep_axis0_gridbatch (the gridbatch route)",
         "route": "cuda",
         "source": "mceik_tpu_torch/csrc/sweep3d.cu",

@@ -1,5 +1,6 @@
-// K1: one full 3-D eikonal sweep cycle over a batch of fields, for sm_90a,
-// with the seed floor computed in the kernel.
+// K1: the 3-D eikonal sweep solve of a batch of fields, for sm_90a, with
+// the seed floor computed in the kernel: each field's whole solve in one
+// launch.
 //
 // Replaces four Pallas TPU kernels, all of which march one 3-D cycle:
 // `_sweep_axes012_fused_kernel` / `sweep_axes012_fused`
@@ -18,6 +19,22 @@
 // planes forward and then backward; each plane takes a_ax = min(T[i-1],
 // T[i+1]) (T[i-1] already updated in this march, edges read BIG) and then
 // n_inner in-plane Jacobi steps T = max(min(T, local_solve(a)), floor).
+// min and max are torch's, NaN if either operand is (line2d.cuh), so a
+// field with a NaN in s comes out as the plain cycle's.
+//
+// The solve is `solve.sweep_solve` per field: counted iterations of
+// per_iter cycles (2 on the blocked route, else 1) until
+// !(max |T_end - T_start| > tol) over the iteration or max_iters of them,
+// the max NaN-propagating as torch.amax, so a field whose residual is NaN
+// stops where the host loop marks it done; each field's cycle count is
+// written out. The CTA loops over its own field's cycles; K1 marches in
+// place, and a 64^3 field does not fit on chip, so an iteration's start
+// values stay in device memory: the copy back after the axis-2 march that
+// ends an iteration reads them (T0 at the first iteration, then a third
+// scratch field), reduces the residual and writes the end values there as
+// the next start, 8 bytes per node and iteration where the host loop paid
+// a clone, a subtraction, an abs and an amax (~32). The transposed s is
+// made once per launch.
 //
 // The floor. The kernel reads four floats per field, the source's
 // fractional index coordinates (a, b, c) and its slowness s_src, as the
@@ -30,7 +47,7 @@
 // (B,) + grid floor tensor is read or built.
 //
 // Design. One CTA owns one field (B = 128 fields of 64^3 fill 128 of the
-// H100's 132 SMs) and walks the whole cycle on it; the plane march is
+// H100's 132 SMs) and walks the whole solve on it; the plane march is
 // sequential, so there is nothing to split across CTAs without a grid-wide
 // barrier. Thread t owns the in-plane nodes t, t + nthr, ... of every plane
 // of an axis: NPT of them, a template constant (1-4, and 8, 12, 16, 20 for
@@ -71,26 +88,30 @@
 // covers T as well as s at every size, where a z-major s alone would leave
 // T's loads and stores strided and a staged slab of z-planes does not fit
 // beside 128^2 planes. The copies cost 8 bytes per node each way, the
-// scratch 2 fields per field (the caller allocates it), and the shared
-// memory one 32 x 33 tile per warp (132 KB at 1024 threads), which the
-// plane buffers reuse.
+// scratch 3 fields per field (the caller allocates it), and
+// the shared memory one 32 x 33 tile per warp (132 KB at 1024 threads),
+// which the plane buffers reuse.
 //
 // What bounds it. The ~46 operations per node and step (two correctly
 // rounded square roots among them) and the n_inner + 1 block barriers per
 // plane visit: the global traffic is each node's T and s read once and T
 // written once per visit, coalesced on every axis. Every instance uses the
 // 64 registers a 1024-thread block allows, and spills (ptxas -v, bytes of
-// spill stores: 304 at config 2's 4 nodes per thread, 180 at config 3's 3,
-// 300 at config 5's 16).
+// spill stores: 448 at config 2's 4 nodes per thread, 348 at config 3's 3,
+// 596 at config 5's 16). At config 2 the Jacobi steps hold no spill code
+// and a plane visit 29 stores; the rest sits in the residual copy back,
+// run once per counted iteration.
 //
 // Arithmetic matches mceik_tpu_torch/eikonal/godunov.py (and the JAX
 // package) in operation order; build with --fmad=false so that no product
 // is contracted into an FMA the reference does not have.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "line2d.cuh"
 
 namespace {
+
+using line2d::nan_max;
+using line2d::nan_min;
 
 constexpr float kBig = 1e10f;
 constexpr float kDiscFloor = 1e-12f;
@@ -99,6 +120,8 @@ constexpr int kMaxThreads = 1024;
 constexpr int kRegNodes = 4;
 // One warp's transposition tile, 32 x 33 floats (padded: no bank conflicts).
 constexpr int kTileFloats = 32 * 33;
+// Rows of a tile whose start values a residual copy-back loads at a time.
+constexpr int kResidRows = 8;
 
 struct SweepConsts {
   float h[3];    // spacing per grid axis
@@ -121,16 +144,16 @@ __device__ __forceinline__ float seeded_floor(const float* sc, int i0, int i1,
 }
 
 __device__ __forceinline__ float sqrt_floored(float x) {
-  return sqrtf(fmaxf(x, kDiscFloor));
+  return sqrtf(nan_max(x, kDiscFloor));
 }
 
 // godunov._local_solve_iso, D = 3.
 __device__ __forceinline__ float local_iso(float x0, float x1, float x2,
                                            float s, float h, float hh) {
-  float lo = fminf(x0, x1), hi = fmaxf(x0, x1);
-  float m = fminf(x2, hi);
-  hi = fmaxf(x2, hi);
-  float a1 = fminf(lo, m), a2 = fmaxf(lo, m), a3 = hi;
+  float lo = nan_min(x0, x1), hi = nan_max(x0, x1);
+  float m = nan_min(x2, hi);
+  hi = nan_max(x2, hi);
+  float a1 = nan_min(lo, m), a2 = nan_max(lo, m), a3 = hi;
   float s2h2 = (s * s) * hh;
   float t1 = a1 + s * h;
   float d12 = a1 - a2;
@@ -191,30 +214,40 @@ __device__ __forceinline__ float node_update(const float* cur, int k, int ip,
                                              const SweepConsts& c) {
   float ap, aq;
   if constexpr (kHalo) {
-    ap = fminf(cur[k + A.nq + 2], cur[k - A.nq - 2]);
-    aq = fminf(cur[k + 1], cur[k - 1]);
+    ap = nan_min(cur[k + A.nq + 2], cur[k - A.nq - 2]);
+    aq = nan_min(cur[k + 1], cur[k - 1]);
   } else {
-    ap = fminf(ip + 1 < A.np ? cur[k + A.nq] : kBig,
-               ip > 0 ? cur[k - A.nq] : kBig);
-    aq = fminf(iq + 1 < A.nq ? cur[k + 1] : kBig,
-               iq > 0 ? cur[k - 1] : kBig);
+    ap = nan_min(ip + 1 < A.np ? cur[k + A.nq] : kBig,
+                 ip > 0 ? cur[k - A.nq] : kBig);
+    aq = nan_min(iq + 1 < A.nq ? cur[k + 1] : kBig,
+                 iq > 0 ? cur[k - 1] : kBig);
   }
   const float t = c.iso ? local_iso(aax, ap, aq, s, A.h, A.hh)
                         : local_weighted(aax, ap, aq, A.w0, A.w1, A.w2, s);
-  return fmaxf(fminf(tc, t), fl);
+  return nan_max(nan_min(tc, t), fl);
 }
 
 // Copies the field src, laid out (n0, n1, n2), into dst laid out
 // (n2, n0, n1) (to_z) or back (!to_z): 32x32 tiles of (y, z) at one x, one
 // tile per warp at a time through the warp's padded tile in shared memory,
 // so that both the reads and the writes run along a contiguous axis.
-__device__ void transpose_field(const float* src, float* dst, int n0, int n1,
-                                int n2, bool to_z, float* tiles) {
+//   kResid (a copy back that ends a solve's counted iteration): each node's
+// value v also goes to `keep`, the next iteration's start, and the thread's
+// max |v - old| over its nodes is returned, `old` being this iteration's
+// start in T's layout (`keep` itself after the first iteration: each node
+// is read before it is written, by the same thread). The max is NaN if any
+// term is, as torch.amax; the subtraction is the host loop's fp32 one.
+template <bool kResid>
+__device__ float transpose_field(const float* src, float* dst, int n0,
+                                 int n1, int n2, bool to_z, float* tiles,
+                                 const float* old = nullptr,
+                                 float* keep = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   float* tile = tiles + warp * kTileFloats;
   const int ty = (n1 + 31) / 32, tz = (n2 + 31) / 32;
   const int ntiles = n0 * ty * tz;
+  float res = 0.0f;
   for (int t = warp; t < ntiles; t += nw) {
     const int x = t / (ty * tz);
     const int rem = t - x * ty * tz;
@@ -228,43 +261,102 @@ __device__ void transpose_field(const float* src, float* dst, int n0, int n1,
       tile[r * 33 + lane] = (y < n1 && z < n2) ? src[off] : 0.0f;
     }
     __syncwarp();
+    if constexpr (kResid) {
+      // !to_z: z along the lanes; the start values of kResidRows rows are
+      // loaded before any of them is stored.
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const int y = to_z ? y0 + lane : y0 + r;
-      const int z = to_z ? z0 + r : z0 + lane;
-      const int off = to_z ? (z * n0 + x) * n1 + y : (x * n1 + y) * n2 + z;
-      if (y < n1 && z < n2) dst[off] = tile[lane * 33 + r];
+      for (int r0 = 0; r0 < 32; r0 += kResidRows) {
+        float o[kResidRows];
+#pragma unroll
+        for (int u = 0; u < kResidRows; ++u) {
+          const int y = y0 + r0 + u, z = z0 + lane;
+          o[u] = (y < n1 && z < n2) ? old[(x * n1 + y) * n2 + z] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kResidRows; ++u) {
+          const int y = y0 + r0 + u, z = z0 + lane;
+          if (y < n1 && z < n2) {
+            const int off = (x * n1 + y) * n2 + z;
+            const float v = tile[lane * 33 + r0 + u];
+            dst[off] = v;
+            keep[off] = v;
+            res = nan_max(res, fabsf(v - o[u]));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int y = to_z ? y0 + lane : y0 + r;
+        const int z = to_z ? z0 + r : z0 + lane;
+        const int off = to_z ? (z * n0 + x) * n1 + y : (x * n1 + y) * n2 + z;
+        if (y < n1 && z < n2) dst[off] = tile[lane * 33 + r];
+      }
     }
     __syncwarp();
   }
+  return res;
 }
 
+// The maximum of r over the block, NaN if any thread's is, the same value
+// in every thread. `red` holds one float per warp (shared memory no warp
+// still reads: the caller has passed a block barrier since).
+__device__ __forceinline__ float block_max(float r, float* red) {
+  r = line2d::warp_max(r);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = r;
+  __syncthreads();
+  r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = nan_max(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+// The CTA's index, read anew at each call: neither it nor a pointer made
+// from it can be kept in a register from one use to the next, so the
+// field's pointers cost no register across a march, where all 64 are taken.
+__device__ __forceinline__ int64_t cta() {
+  unsigned b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
+
+// The batch's buffers (kernel parameters) and the CTA's field in each,
+// made at each use (cta()). scratch holds per field the axis-2 march's
+// copies of T and s laid out (n2, n0, n1), z(0) and z(1), and the counted
+// iteration's start values, z(2).
+struct Fields {
+  const float* T0;
+  float* T;
+  const float* S;
+  float* scratch;
+  int64_t field;  // nodes per field
+  __device__ float* t() const { return T + cta() * field; }
+  __device__ const float* s() const { return S + cta() * field; }
+  __device__ const float* t0() const { return T0 + cta() * field; }
+  __device__ float* z(int k) const {
+    return scratch + (3 * cta() + k) * field;
+  }
+};
+
+// Cycle `cyc` (from 0) of the CTA's field, in place (source scalars sc),
+// ending with a block barrier. The axis-2 march runs on z(0) and z(1); s
+// is copied to z(1) at cycle 0 only (it does not change within a launch).
+// The cycle that ends a solve's counted iteration of per_iter cycles copies
+// T back with the residual (transpose_field<true>: the start values are T0
+// at the first iteration, then z(2)) and returns the thread's
+// max |T_end - T_start|; any other cycle returns 0.
 // T is read and written by the CTA (no __restrict__/read-only path: later
 // plane visits must see earlier stores of the same CTA).
 template <int NPT, bool kRowQ>
-__global__ void __launch_bounds__(kMaxThreads)
-sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
-                     const float* __restrict__ scal, float* scratch,
-                     const uint8_t* __restrict__ done,
-                     unsigned long long* __restrict__ count, int n0, int n1,
-                     int n2, SweepConsts c) {
+__device__ __forceinline__ float sweep_cycle(const Fields& F, int cyc,
+                                             int per_iter, const float* sc,
+                                             int n0, int n1, int n2,
+                                             const SweepConsts& c,
+                                             float* smem) {
   constexpr bool kStageS = NPT > kRegNodes;
   // The register path's exchange buffers carry a BIG halo (no guards).
   constexpr bool kHalo = !kStageS;
-  const int b = blockIdx.x;
-  if (done[b]) return;  // uniform per CTA: no barrier is skipped by half
-  // One field-cycle per active field and launch.
-  if (count != nullptr && threadIdx.x == 0) atomicAdd(count, 1ULL);
-  const int64_t field = (int64_t)n0 * n1 * n2;
-  T += b * field;
-  S += b * field;
-  // The axis-2 march runs on copies laid out (n2, n0, n1): T's and s's.
-  float* const Tz = scratch + 2 * b * field;
-  float* const Sz = Tz + field;
-  float sc[4];
-  for (int e = 0; e < 4; ++e) sc[e] = scal[4 * b + e];
-
-  extern __shared__ float smem[];
+  float res = 0.0f;
   const int max_plane =
       kHalo ? max((n1 + 2) * (n2 + 2),
                   max((n0 + 2) * (n2 + 2), (n0 + 2) * (n1 + 2)))
@@ -287,16 +379,17 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
     A.sa = ax == 0 ? n1 * n2 : (ax == 1 ? n2 : 1);
     A.sp = p == 0 ? n1 * n2 : n2;
     A.sq = q == 1 ? n2 : 1;
-    float* Tm = T;
-    const float* Sm = S;
+    float* Tm = F.t();
+    const float* Sm = F.s();
     if (ax == 2) {
       // The (x, y) planes of axis 2 are strided by n2 in T's layout: march
       // them in the transposed copies, whose (x, y) planes are contiguous.
-      transpose_field(T, Tz, n0, n1, n2, true, smem);
-      transpose_field(S, Sz, n0, n1, n2, true, smem);
+      transpose_field<false>(F.t(), F.z(0), n0, n1, n2, true, smem);
+      if (cyc == 0)
+        transpose_field<false>(F.s(), F.z(1), n0, n1, n2, true, smem);
       __syncthreads();
-      Tm = Tz;
-      Sm = Sz;
+      Tm = F.z(0);
+      Sm = F.z(1);
       A.sa = n0 * n1;
       A.sp = n1;
       A.sq = 1;
@@ -378,7 +471,7 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
           const int off = first * A.sa + po(j);
           const float tn = has ? Tm[inx * A.sa + po(j)] : kBig;
           // First plane: the previous plane is BIG.
-          aax[j] = fminf(kBig, tn);
+          aax[j] = nan_min(kBig, tn);
           const float t0 = Tm[off];
           cur[m] = t0;
           if constexpr (kStageS) {
@@ -459,7 +552,7 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
             Tm[off_i + po(j)] = v;
             if (more) {
               const int off_n = (i + step) * A.sa + po(j);
-              aax[j] = fminf(v, has2 ? Tm[inx2 * A.sa + po(j)] : kBig);
+              aax[j] = nan_min(v, has2 ? Tm[inx2 * A.sa + po(j)] : kBig);
               cur[m] = Tm[off_n];
               sbuf[m] = Sm[off_n];
             }
@@ -467,7 +560,7 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
             const float v = tc[j];
             Tm[off_i + po(j)] = v;
             if (more) {
-              aax[j] = fminf(v, t2[j]);
+              aax[j] = nan_min(v, t2[j]);
               tc[j] = t1[j];
               t1[j] = t2[j];
               sv[j] = s1[j];
@@ -481,43 +574,93 @@ sweep3d_cycle_kernel(float* T, const float* __restrict__ S,
         __syncthreads();
       }
     }
-    if (ax == 2) transpose_field(Tz, T, n0, n1, n2, false, smem);
+    if (ax == 2) {
+      if ((cyc + 1) % per_iter == 0) {
+        res = transpose_field<true>(
+            F.z(0), F.t(), n0, n1, n2, false, smem,
+            cyc + 1 == per_iter ? F.t0() : F.z(2), F.z(2));
+      } else {
+        transpose_field<false>(F.z(0), F.t(), n0, n1, n2, false, smem);
+      }
+    }
+  }
+  // The next cycle's planes reuse the tiles, and its marches read T.
+  __syncthreads();
+  return res;
+}
+
+// One CTA per field, F.T holding a copy of F.T0: counted iterations of
+// per_iter cycles each until the field's max |T_end - T_start| over an
+// iteration is not above tol (a NaN residual stops it, as not (NaN > tol))
+// or after max_cycles cycles (a whole number of iterations); `cycles` (may
+// be null) gets the field's cycle count, `count` (may be null) adds it.
+// The name is the one the benchmark's trace readers look for.
+template <int NPT, bool kRowQ>
+__global__ void __launch_bounds__(kMaxThreads)
+sweep3d_cycle_kernel(Fields F, const float* __restrict__ scal,
+                     int* __restrict__ cycles,
+                     unsigned long long* __restrict__ count, int n0, int n1,
+                     int n2, SweepConsts c, int max_cycles, int per_iter,
+                     float tol) {
+  const int b = blockIdx.x;
+  float sc[4];
+  for (int e = 0; e < 4; ++e) sc[e] = scal[4 * b + e];
+  extern __shared__ float smem[];
+  int cyc = 0;
+  while (cyc < max_cycles) {
+    const float res =
+        sweep_cycle<NPT, kRowQ>(F, cyc, per_iter, sc, n0, n1, n2, c, smem);
+    ++cyc;
+    if (cyc % per_iter == 0 && !(block_max(res, smem) > tol))
+      break;
+  }
+  if (threadIdx.x == 0) {
+    if (cycles != nullptr) cycles[b] = cyc;
+    if (count != nullptr) atomicAdd(count, (unsigned long long)cyc);
   }
 }
 
 template <int NPT, bool kRowQ>
-int launch_npt(float* T, const float* S, const float* scal, float* scratch,
-               const uint8_t* done, unsigned long long* count, int B, int n0,
-               int n1, int n2,
-               const SweepConsts& c, int threads, size_t smem,
-               void* stream) {
+int launch_npt(const Fields& F, const float* scal, int* cycles,
+               unsigned long long* count, int B, int n0, int n1, int n2,
+               const SweepConsts& c, int max_cycles, int per_iter, float tol,
+               int threads, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       sweep3d_cycle_kernel<NPT, kRowQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   sweep3d_cycle_kernel<NPT, kRowQ><<<B, threads, smem,
                                      (cudaStream_t)stream>>>(
-      T, S, scal, scratch, done, count, n0, n1, n2, c);
+      F, scal, cycles, count, n0, n1, n2, c, max_cycles, per_iter, tol);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry, loaded with ctypes: one cycle on the (B, n0, n1, n2) batch T in
-// place, slowness S of the same shape, `scal` the (B, 4) rows
-// (a, b, c, s_src) of each field's source, `radius` the seed ball's radius,
-// `scratch` 2 * B * n0 * n1 * n2 floats for the axis-2 copies, `count`
-// null or a counter that each field not done adds 1 to (its field-cycles).
-// `consts` is a host array of 9 floats (h[3], hh[3], w[3]). Launches on `stream` of
-// `device` and returns the CUDA error code of the set-up calls or of
-// cudaGetLastError() after the launch (0 = launched; -1 = a plane larger
-// than 20 nodes per thread). Does not synchronise.
-extern "C" int sweep3d_cycle(float* T, const float* S, const float* scal,
-                             float* scratch, const uint8_t* done,
-                             unsigned long long* count, int B,
-                             int n0, int n1, int n2, const float* consts,
-                             int iso, int n_inner, float radius, int threads,
-                             int device, void* stream) {
+// C entry, loaded with ctypes: each field's solve on the (B, n0, n1, n2)
+// batch T, a copy of T0 (distinct buffers) marched in place, slowness S of
+// the same shape, `scal` the (B, 4) rows (a, b, c, s_src) of each field's
+// source, `radius` the seed ball's radius, `consts` a host array of 9
+// floats (h[3], hh[3], w[3]): iterations of per_iter cycles until the
+// field's max |T_end - T_start| over one is not above tol, at most
+// max_iters of them. `scratch` holds 3 * B * n0 * n1 * n2 floats,
+// `cycles` (may be null) gets each field's cycle count, `count` is null or
+// a counter each field adds its cycles to (its field-cycles). Launches on
+// `stream` of `device` and returns the CUDA error code of the set-up calls
+// or of cudaGetLastError() after the launch (0 = launched; -1 = a plane
+// larger than 20 nodes per thread, or counts out of range). Does not
+// synchronise.
+extern "C" int sweep3d_solve(const float* T0, float* T, const float* S,
+                             const float* scal, float* scratch, int* cycles,
+                             unsigned long long* count, int B, int n0, int n1,
+                             int n2, const float* consts, int iso,
+                             int n_inner, float radius, int max_iters,
+                             int per_iter, float tol, int threads, int device,
+                             void* stream) {
+  if (max_iters < 0 || per_iter < 1 ||
+      (int64_t)max_iters * per_iter > 0x7fffffff)
+    return -1;
+  const Fields F{T0, T, S, scratch, (int64_t)n0 * n1 * n2};
   SweepConsts c;
   for (int d = 0; d < 3; ++d) {
     c.h[d] = consts[d];
@@ -545,11 +688,13 @@ extern "C" int sweep3d_cycle(float* T, const float* S, const float* scal,
   // Row-aligned ownership where every plane's rows (n2 for axes 0 and 1,
   // n1 for the transposed axis 2) divide the thread count.
   const bool row_q = threads % n2 == 0 && threads % n1 == 0;
-#define K1_LAUNCH(N)                                                         \
-  (row_q ? launch_npt<N, true>(T, S, scal, scratch, done, count, B, n0, n1, \
-                               n2, c, threads, smem, stream)               \
-         : launch_npt<N, false>(T, S, scal, scratch, done, count, B, n0, n1, \
-                                n2, c, threads, smem, stream))
+#define K1_LAUNCH(N)                                                      \
+  (row_q ? launch_npt<N, true>(F, scal, cycles, count, B, n0, n1, n2, c,  \
+                               max_iters * per_iter, per_iter, tol,        \
+                               threads, smem, stream)                      \
+         : launch_npt<N, false>(F, scal, cycles, count, B, n0, n1, n2, c,  \
+                                max_iters * per_iter, per_iter, tol,       \
+                                threads, smem, stream))
   switch (npt) {
     case 1: return K1_LAUNCH(1);
     case 2: return K1_LAUNCH(2);

@@ -14,8 +14,8 @@ ends with the Gibbs scan over the station indicators.
 
 ``--grad-chains 8,16`` first times one batched ``value_and_grad`` at each
 of those chain counts (chains started as the sampler starts them), with its
-K1 and transport launches (cycles per forward and per transport solve) and
-its peak device memory in GB (1e9 bytes), and from the last two counts the
+K1 and transport launches (a K1 launch per forward solve, a transport
+launch per cycle) and its peak device memory in GB (1e9 bytes), and from the last two counts the
 largest chain count whose gradient leaves 10 GB of the card's memory free
 (memory is affine in the chain count); ``--steps 0`` stops there. Config
 5: ``configs/c5_pod_nuts.json --grad-chains 8,16 --steps 0``, then its
@@ -34,8 +34,8 @@ the same particles (its bisection syncs the device once per probe), then
 Prints one JSON line: steps/s, the kernels' launches per step and the
 cycles each counted per step, summed over fields
 (``sweep3d_cycle_field_cycles``, ``sweep2d_field_cycles``, ...: one launch
-of a 2-D kernel runs every field's whole solve, one of K1, K4 or K5 one
-cycle of the fields not done), K3's launches of its block route
+of K1 or of a 2-D kernel runs every field's whole solve, one of K4 or K5
+one cycle of the fields not done), K3's launches of its block route
 (``sweep2d_block_launches``), the device's busy and idle share of the
 traced window (kernel and copy intervals merged), and device time by kernel
 name. Needs a CUDA device: a measurement path does not fall back to the
@@ -115,8 +115,8 @@ def kernels():
 
 def counts():
     """Every kernel's launches, and its cycles summed over fields as the
-    kernel counts them (one launch of K3 or K6 runs every field's whole
-    solve; one launch of K1, K4 or K5 is one cycle of the fields not
+    kernel counts them (one launch of K1, K3 or K6 runs every field's
+    whole solve; one launch of K4 or K5 is one cycle of the fields not
     done)."""
     out = {}
     for name, k in kernels().items():

@@ -2,16 +2,17 @@
 kernels K4 and K5, on the card, per cycle and per axis, beside an earlier
 version of its source.
 
-    python -m mceik_tpu_torch.diag.sweep_timing [--transport]
+    python -m mceik_tpu_torch.diag.sweep_timing [--transport | --solve]
         [--baseline OLD.cu] [--variants A.cu,B.cu] [--cells c2,c3,c5]
         [--reps 10] [--axes]
 
 For each cell, the batch its main path sweeps is drawn from the config's
 prior (c2: 16 chains x 8 sources of 64^3; c3: 8 chains x 16 stations of
 48x48x32; c5: 4 chains x 24 stations of 128^3) and seeded. Then one K1
-cycle is timed with CUDA events over ``--reps`` launches, in turns with the
-baseline (new, old, old, new), and the two outputs must be equal bit for
-bit. ``--baseline`` is a ``sweep3d.cu`` with the floor-operand C entry
+cycle (its solve entry at one counted iteration of one cycle, whose copy
+back also reduces the residual) is timed with CUDA events over ``--reps``
+launches, in turns with the baseline (new, old, old, new), and the two
+outputs must be equal bit for bit. ``--baseline`` is a ``sweep3d.cu`` with the floor-operand C entry
 ``sweep3d_cycle(T, S, F, done, B, n0, n1, n2, consts, iso, n_inner,
 threads, device, stream)`` of earlier versions (for example ``git show
 <commit>:mceik_tpu_torch/csrc/sweep3d.cu``); it is fed the
@@ -59,6 +60,18 @@ copies of it with parts taken out (``SPLITS``: its block barriers, its
 square roots, the Jacobi steps, the lane-edge shuffles, the whole sweep):
 wrong results, a diagnostic of where a cycle's time goes.
 
+``--solve`` times K1's whole solve at the config's tolerance and route
+(two cycles per counted iteration on c5's blocked route) on the cell's
+batch (default ``--cells c2,c3,c5``): the solve entry, one launch per
+solve (``Sweep3dKernel.solve``), in turns with the host loop
+``solve.sweep_solve`` (a launch, a clone and a done test per counted
+iteration) around the one-cycle entry of ``--baseline``, a ``sweep3d.cu``
+with the seeded cycle entry ``sweep3d_cycle(T, S, scal, scratch, done,
+count, B, n0, n1, n2, consts, iso, n_inner, radius, threads, device,
+stream)`` (``git show ea66d0a:mceik_tpu_torch/csrc/sweep3d.cu``): one,
+loop, loop, one. Both must give the same bits and per-field cycle counts;
+the row has the launches and host syncs per solve of each.
+
 Prints the card's ``nvidia-smi`` line, then one JSON line per cell. Needs
 a CUDA device; builds into ``build/kernels/``.
 """
@@ -85,10 +98,13 @@ from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.cuda_build import (BUILD_DIR, NvccKernel,
                                                 launch_config)
 from mceik_tpu_torch.eikonal.cuda_sweep import SOURCE, Sweep3dKernel
-from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
-                                           seed_source, source_scalars)
+from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
+                                           seed_floor, seed_source,
+                                           solve_route, source_scalars,
+                                           sweep_solve)
 from mceik_tpu_torch.forward.predict import interp_tables, predict_events
 from mceik_tpu_torch.io.config_io import load_config
+from mceik_tpu_torch.io.trace import COUNTERS
 from mceik_tpu_torch.model.params import box_from_raw
 from mceik_tpu_torch.model.posterior import _gaussian_loglik, build_posterior
 
@@ -146,6 +162,35 @@ class FloorSweep3dKernel(NvccKernel):
                           stream)
         if rc != 0:
             raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
+        return out
+
+
+class SeededSweep3dKernel(NvccKernel):
+    """The seeded one-cycle C entry of earlier ``sweep3d.cu`` versions:
+    one cycle of the fields not done per launch."""
+
+    def __init__(self, source: Path):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        super().__init__(source, "sweep3d_cycle",
+                         [vp] * 6 + [ci] * 4 + [vp, ci, ci, ctypes.c_float,
+                                                ci, ci, vp])
+
+    def __call__(self, T, s, scal, spacing, n_inner, done, *, seed_radius):
+        B, n0, n1, n2 = T.shape
+        h = [float(x) for x in spacing]
+        consts = (ctypes.c_float * 9)(*h, *[x * x for x in h],
+                                      *[1.0 / (x * x) for x in h])
+        threads, index, stream = launch_config(T.shape, T.device)
+        out = T.clone()
+        scratch = torch.empty((B, 2, n2, n0, n1), device=T.device)
+        rc = self.build()(out.data_ptr(), s.data_ptr(), scal.data_ptr(),
+                          scratch.data_ptr(), done.data_ptr(), None, B, n0,
+                          n1, n2, consts, int(len(set(h)) == 1), n_inner,
+                          ctypes.c_float(seed_radius * max(h)), threads,
+                          index, stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
+        self.launches += 1
         return out
 
 
@@ -489,6 +534,56 @@ def _main_2d(args, dev) -> int:
     return 0
 
 
+def _solve_main(args, dev) -> int:
+    """The ``--solve`` mode: K1's solve entry against the host loop around
+    the baseline's cycle entry, per cell."""
+    if args.baseline is None:
+        raise SystemExit("sweep_timing --solve: needs --baseline, a "
+                         "sweep3d.cu with the seeded cycle entry")
+    k, base = Sweep3dKernel(), SeededSweep3dKernel(args.baseline)
+    _build([k, base])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for cell in args.cells.split(","):
+        cfg, grid, s, srcs, _, _ = _batch(cell, dev, gen)
+        e = cfg.eikonal
+        T0, _ = seed_source(s, srcs, grid, e.seed_radius)
+        scal = torch.cat(source_scalars(s, srcs, grid), dim=1).contiguous()
+        per_iter = CYCLES_PER_ITER[solve_route(grid.shape, "on", dev)]
+
+        def one():
+            return k.solve(T0, s, scal, grid.spacing, e.n_inner, e.tol,
+                           e.max_iters, seed_radius=e.seed_radius,
+                           cycles_per_iter=per_iter)
+
+        def loop():
+            return sweep_solve(
+                T0, scal, s, grid.spacing, e.tol, e.max_iters, e.n_inner,
+                cycle=lambda *a: base(*a, seed_radius=e.seed_radius),
+                cycles_per_iter=per_iter, return_cycles=True)
+
+        row = {"cell": cell, "B": T0.shape[0], "grid": list(grid.shape),
+               "n_inner": e.n_inner, "tol": e.tol, "cycles_per_iter": per_iter}
+        for name, run, kern in (("one", one, k), ("loop", loop, base)):
+            launches, syncs = kern.launches, COUNTERS.host_syncs
+            out, cycles = run()
+            torch.cuda.synchronize()
+            row[f"launches_{name}"] = kern.launches - launches
+            row[f"host_syncs_{name}"] = COUNTERS.host_syncs - syncs
+            if name == "one":
+                ref, ref_cycles = out, cycles
+        row["equal"] = _bits_equal(out, ref) and torch.equal(cycles,
+                                                             ref_cycles)
+        row["cycles_per_field_mean"] = float(ref_cycles.float().mean())
+        row["cycles_per_field_max"] = int(ref_cycles.max())
+        turns = _turns(one, loop, max(1, args.reps // 3))
+        row["ms_solve_turns_one_loop_loop_one"] = turns
+        row["ms_one"] = (turns[0] + turns[3]) / 2
+        row["ms_loop"] = (turns[1] + turns[2]) / 2
+        print(json.dumps(row), flush=True)
+        del T0, scal, s, out, ref
+        torch.cuda.empty_cache()
+    return 0
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -502,6 +597,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-k3", type=Path, default=None)
     ap.add_argument("--baseline-k6", type=Path, default=None)
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--solve", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_timing: torch sees no CUDA device")
@@ -511,6 +607,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip())
     if args.transport:
         return _transport_main(args, dev)
+    if args.solve:
+        return _solve_main(args, dev)
     if args.two_d:
         if args.cells == ap.get_default("cells"):
             args.cells = "c4,c1"
@@ -538,8 +636,8 @@ def main(argv=None) -> int:
         done = torch.zeros(T0.shape[0], dtype=torch.bool, device=dev)
 
         def run_new(k=new):
-            return k(T0, s, scal, grid.spacing, e.n_inner, done,
-                     seed_radius=e.seed_radius)
+            return k.solve(T0, s, scal, grid.spacing, e.n_inner, 0.0, 1,
+                           seed_radius=e.seed_radius)[0]
 
         row = {"cell": cell, "B": T0.shape[0], "grid": list(grid.shape),
                "n_inner": e.n_inner}

@@ -36,10 +36,9 @@ def solve_eikonal_batched(slowness: torch.Tensor, srcs: torch.Tensor,
         choice from ``config.use_pallas`` and the field size:
         ``"field"`` sweeps CUDA tensors with the CUDA kernels, which
         compute the seed floor from the source scalars (no floor field is
-        built), one cycle per iteration: on a 3-D grid a K1 launch per
-        cycle under the host loop ``solve.sweep_solve``, on a 2-D grid one
-        K3 launch that runs every field's whole solve
-        (``cuda_sweep.solve``); ``"blocked"`` (3-D) does the same with two
+        built), one cycle per iteration: one K1 launch (3-D) or K3 launch
+        (2-D) that runs every field's whole solve (``cuda_sweep.solve``);
+        ``"blocked"`` (3-D) does the same with two
         cycles per iteration (the reference's count on fields above 2 MB);
         ``"gridbatch"``, 3-D only, is the ``"field"`` route under the name
         of the reference's seeded route; ``"xla"`` is the plain sweep with

@@ -3,9 +3,10 @@ sweep dispatch of every batch to its kernel (K1 for 3-D fields, K3,
 ``eikonal/cuda_sweep2d.py``, for 2-D fields; both compute the seed floor in
 the kernel from the source scalars).
 
-Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch runs one
-full sweep cycle (axes 0, 1, 2, each forward then backward) on every field
-of a ``(B, nx, ny, nz)`` fp32 batch whose done flag is clear. It replaces
+Counterpart of ``mceik_tpu/eikonal/pallas_sweep.py``. One launch of K1
+runs each field's whole solve on a ``(B, nx, ny, nz)`` fp32 batch, full
+sweep cycles (axes 0, 1, 2, each forward then backward) until the field's
+own convergence (:meth:`Sweep3dKernel.solve`). Its cycle replaces
 the Pallas kernel ``sweep_axes012_fused`` (pallas_sweep.py:372) on cube
 grids, on config 3's non-cube route (n_x == n_y, 48x48x32) the pair
 ``sweep_axes01_fused`` (pallas_sweep.py:222, call :230) + ``sweep_axis0``
@@ -19,12 +20,12 @@ The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` and loaded with ``ctypes`` (``eikonal/cuda_build.py``).
 Nothing is built when this module is imported.
 
-:func:`seeded_cycle` launches K1 or K3's cycle for CUDA tensors and runs
+:func:`seeded_cycle` launches K3's cycle for CUDA 2-D batches and runs
 the plain version, ``solve.sweep_seeded_cycle_plain``, for CPU tensors;
-:func:`solve` runs a whole solve: K3's solve entry on CUDA 2-D batches (one
-launch), else the host loop ``solve.sweep_solve`` around
-:func:`seeded_cycle`. There is no other fallback. A failed build or launch
-raises.
+:func:`solve` runs a whole solve: K1's or K3's solve entry on CUDA tensors
+(one launch), the host loop ``solve.sweep_solve`` around
+:func:`seeded_cycle` on CPU tensors. There is no other fallback. A failed
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -33,15 +34,14 @@ import ctypes
 import functools
 import math
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from mceik_tpu_torch.eikonal.cuda_build import (CSRC, MAX_SMEM_BYTES,
                                                 MAX_THREADS, FieldCycles,
                                                 NvccKernel, check_fields,
-                                                done_flags, launch_config,
-                                                launch_threads)
+                                                launch_config, launch_threads)
 from mceik_tpu_torch.eikonal.cuda_sweep2d import SWEEP2D
 from mceik_tpu_torch.eikonal.solve import (sweep_seeded_cycle_plain,
                                            sweep_solve)
@@ -82,61 +82,74 @@ def sweep3d_limit() -> str:
 
 
 class Sweep3dKernel(NvccKernel, FieldCycles):
-    """K1 built from ``csrc/sweep3d.cu`` (or ``source``), with its launch
-    count and its field-cycles (one per field not done, per launch, counted
-    by the kernel)."""
+    """K1 built from ``csrc/sweep3d.cu`` (or ``source``): each field's whole
+    solve per launch, with its launch count and its field-cycles (each
+    field's cycles, counted by the kernel)."""
 
     def __init__(self, source: Path = SOURCE):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        NvccKernel.__init__(self, source, "sweep3d_cycle",
-                            [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci,
-                             ci, ctypes.c_float, ci, ci, vp])
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        NvccKernel.__init__(self, source, "sweep3d_solve",
+                            [vp] * 7 + [ci] * 4 + [vp, ci, ci, cf, ci, ci,
+                                                   cf, ci, ci, vp])
         FieldCycles.__init__(self)
 
-    def __call__(self, T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
-                 spacing: Sequence[float], n_inner: int,
-                 done: Optional[torch.Tensor] = None, *,
-                 seed_radius: float) -> torch.Tensor:
-        """One cycle on a copy of ``T``; returns the swept batch. ``scal``
-        holds the ``(B, 4)`` rows ``(a, b, c, s_src)`` of
-        ``solve.source_scalars``; the seed ball's radius is ``seed_radius``
-        times the largest spacing."""
-        B = T.shape[0] if T.ndim else 0
-        if (scal.device != T.device or scal.dtype != torch.float32
+    def solve(self, T0: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
+              spacing: Sequence[float], n_inner: int, tol: float,
+              max_cycles: int, *, seed_radius: float,
+              cycles_per_iter: int = 1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each field's solve from ``T0`` in one launch: counted iterations
+        of ``cycles_per_iter`` cycles until the field's
+        ``max|T_end - T_start|`` over one is not above ``tol`` (a NaN
+        residual also stops it), at most ``max_cycles`` iterations. Returns
+        the batch and each field's cycle count (``(B,)`` int32), those of
+        ``solve.sweep_solve`` with ``return_cycles``. ``scal`` holds the
+        ``(B, 4)`` rows ``(a, b, c, s_src)`` of ``solve.source_scalars``;
+        the seed ball's radius is ``seed_radius`` times the largest
+        spacing. Bad counts and inputs raise ValueError before anything is
+        built."""
+        if (cycles_per_iter < 1 or max_cycles < 0
+                or max_cycles * cycles_per_iter >= 2 ** 31):
+            raise ValueError(f"bad max_cycles {max_cycles} or "
+                             f"cycles_per_iter {cycles_per_iter}")
+        B = T0.shape[0] if T0.ndim else 0
+        if (scal.device != T0.device or scal.dtype != torch.float32
                 or tuple(scal.shape) != (B, 4) or not scal.is_contiguous()):
             raise ValueError(f"scal: need a contiguous float32 ({B}, 4) "
-                             f"tensor on {T.device}, got {scal.dtype} "
+                             f"tensor on {T0.device}, got {scal.dtype} "
                              f"{tuple(scal.shape)} on {scal.device}")
-        dev = check_fields("sweep3d", [("T", T), ("s", s)], sweep3d_smem,
+        dev = check_fields("sweep3d", [("T", T0), ("s", s)], sweep3d_smem,
                            limit=sweep3d_limit())
-        B, n0, n1, n2 = T.shape
+        B, n0, n1, n2 = T0.shape
         if n0 * n1 * n2 >= 2 ** 31:
             raise ValueError(f"grid {(n0, n1, n2)}: K1 indexes a field with "
                              "32-bit offsets")
-        done = done_flags(done, B, dev)
         if len(spacing) != 3 or n_inner < 0:
             raise ValueError(f"bad spacing {spacing} or n_inner {n_inner}")
         h = [float(x) for x in spacing]
         fn = self.build()
-        out = T.clone()
+        out = T0.clone()
+        cycles = torch.empty(B, dtype=torch.int32, device=dev)
         if B == 0:
-            return out
+            return out, cycles
         consts = (ctypes.c_float * 9)(*h, *[x * x for x in h],
                                       *[1.0 / (x * x) for x in h])
         iso = int(len(set(h)) == 1)
         radius = ctypes.c_float(float(seed_radius) * max(h))
-        # The axis-2 march's (n2, n0, n1) copies of T and s, per field.
-        scratch = torch.empty((B, 2, n2, n0, n1), dtype=torch.float32,
+        # Per field, the axis-2 march's (n2, n0, n1) copies of T and s, and
+        # the counted iteration's start values.
+        scratch = torch.empty((B, 3, n2, n0, n1), dtype=torch.float32,
                               device=dev)
-        threads, index, stream = launch_config(T.shape, dev)
-        rc = fn(out.data_ptr(), s.data_ptr(), scal.data_ptr(),
-                scratch.data_ptr(), done.data_ptr(),
+        threads, index, stream = launch_config(T0.shape, dev)
+        rc = fn(T0.data_ptr(), out.data_ptr(), s.data_ptr(), scal.data_ptr(),
+                scratch.data_ptr(), cycles.data_ptr(),
                 self.counter(dev).data_ptr(), B, n0, n1, n2, consts, iso,
-                int(n_inner), radius, threads, index, stream)
+                int(n_inner), radius, int(max_cycles), int(cycles_per_iter),
+                float(tol), threads, index, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
-        return out
+        return out, cycles
 
 
 SWEEP3D = Sweep3dKernel()
@@ -150,20 +163,18 @@ def seeded_cycle(T: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
     ``(B, D + 1)`` source scalars and ``seed_radius`` (in units of the
     largest spacing), on the fields whose ``done`` flag is clear.
 
-    CUDA tensors go to K1 (a ``(B, nx, ny, nz)`` batch) or to K3's cycle
-    (a ``(B, n0, n1)`` batch), CPU tensors to the plain version
-    (``solve.sweep_seeded_cycle_plain``). Any other device raises.
+    A CUDA ``(B, n0, n1)`` batch goes to K3's cycle, CPU tensors to the
+    plain version (``solve.sweep_seeded_cycle_plain``). Any other batch
+    raises: K1 runs whole solves only (:func:`solve`).
     """
     if T.device.type == "cpu":
         return sweep_seeded_cycle_plain(T, s, scal, spacing, n_inner, done,
                                         seed_radius=seed_radius)
-    if T.device.type == "cuda":
-        if T.ndim == 3:
-            return SWEEP2D.cycle(T, s, scal, spacing, n_inner, done,
-                                 seed_radius=seed_radius)
-        return SWEEP3D(T, s, scal, spacing, n_inner, done,
-                       seed_radius=seed_radius)
-    raise ValueError(f"no seeded sweep for device {T.device}")
+    if T.device.type == "cuda" and T.ndim == 3:
+        return SWEEP2D.cycle(T, s, scal, spacing, n_inner, done,
+                             seed_radius=seed_radius)
+    raise ValueError(f"no seeded sweep cycle for a {T.ndim - 1}-D batch on "
+                     f"{T.device}: K1 runs whole solves (cuda_sweep.solve)")
 
 
 def solve(T0: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
@@ -171,15 +182,16 @@ def solve(T0: torch.Tensor, s: torch.Tensor, scal: torch.Tensor,
           n_inner: int, *, seed_radius: float,
           cycles_per_iter: int = 1) -> torch.Tensor:
     """The sweep solve of the kernels' routes, from ``T0`` with the seed
-    floor rebuilt from the source scalars: on a CUDA ``(B, n0, n1)`` batch
-    K3's solve, each field's whole solve in one launch; otherwise
-    ``solve.sweep_solve`` around :func:`seeded_cycle` (K1 on CUDA 3-D
-    batches, the plain cycle on CPU tensors), ``cycles_per_iter`` cycles
-    per counted iteration. The same bits and per-field counts either way."""
-    if T0.device.type == "cuda" and T0.ndim == 3:
-        return SWEEP2D.solve(T0, s, scal, spacing, n_inner, tol, max_cycles,
-                             seed_radius=seed_radius,
-                             cycles_per_iter=cycles_per_iter)[0]
+    floor rebuilt from the source scalars, ``cycles_per_iter`` cycles per
+    counted iteration: on CUDA tensors the solve entry of K3 (a
+    ``(B, n0, n1)`` batch) or K1 (``(B, nx, ny, nz)``), each field's whole
+    solve in one launch; on CPU tensors ``solve.sweep_solve`` around
+    :func:`seeded_cycle`. The same bits and per-field counts either way."""
+    if T0.device.type == "cuda":
+        kernel = SWEEP2D if T0.ndim == 3 else SWEEP3D
+        return kernel.solve(T0, s, scal, spacing, n_inner, tol, max_cycles,
+                            seed_radius=seed_radius,
+                            cycles_per_iter=cycles_per_iter)[0]
     return sweep_solve(T0, scal, s, spacing, tol, max_cycles, n_inner,
                        cycle=functools.partial(seeded_cycle,
                                                seed_radius=seed_radius),

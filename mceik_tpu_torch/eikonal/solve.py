@@ -4,11 +4,12 @@ plane-sweep solve and the Jacobi solve.
 Counterpart of ``mceik_tpu/eikonal/solve.py``. Everything works on an
 explicit batch of fields ``(B,) + grid.shape``. The plain sweep here is the
 solve the port runs on CPU tensors, and the reference that the CUDA kernels
-(K1 for 3-D batches and K3's cycle for 2-D ones, both with the floor
-rebuilt from the source scalars: :func:`sweep_seeded_cycle_plain`; K3's
-solve, each field's whole solve in one launch: :func:`sweep_solve` around
-it, field by field :func:`sweep_solve_fields_plain`;
-``eikonal/cuda_sweep.py``) are held against on the card.
+(K1 for 3-D batches and K3 for 2-D ones, both with the floor rebuilt from
+the source scalars: K3's cycle against :func:`sweep_seeded_cycle_plain`;
+their solve entries, each field's whole solve in one launch, against
+:func:`sweep_solve` around it, field by field
+:func:`sweep_solve_fields_plain`; ``eikonal/cuda_sweep.py``) are held
+against on the card.
 
 One sweep cycle: for each axis, march the planes low -> high, then
 high -> low. A plane update takes ``a_ax = min(T[i-1], T[i+1])`` (``T[i-1]``
@@ -228,7 +229,7 @@ def sweep_cycle_plain(T, s, floor, spacing: Sequence[float], n_inner: int,
     """One full cycle (both directions along every axis) on the fields whose
     ``done`` flag is clear; done fields come back unchanged. This is the
     plain version of the CUDA kernel ``csrc/sweep2d.cu`` (K3, 2-D batches),
-    and of ``csrc/sweep3d.cu`` (K1) through
+    and of the cycle of ``csrc/sweep3d.cu`` (K1) through
     :func:`sweep_seeded_cycle_plain`."""
 
     def cycle(Ta, sa, fa):
@@ -246,7 +247,8 @@ def sweep_seeded_cycle_plain(T, s, scal, spacing: Sequence[float],
                              *, seed_radius: float) -> torch.Tensor:
     """One cycle with the floor rebuilt from the ``(B, 4)`` source scalars
     (:func:`seeded_floor_plain`), then :func:`sweep_cycle_plain`: the plain
-    version of the CUDA kernel K1 (``csrc/sweep3d.cu``)."""
+    version of a cycle of the CUDA kernels K1 (``csrc/sweep3d.cu``) and K3
+    (``csrc/sweep2d.cu``)."""
     floor = seeded_floor_plain(scal, T.shape[1:], spacing, seed_radius)
     return sweep_cycle_plain(T, s, floor, spacing, n_inner, done)
 
@@ -320,8 +322,9 @@ def jacobi_solve(T0, frozen, s, spacing: Sequence[float], tol: float,
 def sweep_solve_fields_plain(T0, s, scal, spacing: Sequence[float],
                              tol: float, max_cycles: int, n_inner: int, *,
                              seed_radius: float):
-    """The plain version of the CUDA solve entry of K3
-    (``cuda_sweep2d.Sweep2dKernel.solve``): each field on its own, from
+    """The plain version of the CUDA solve entries of K1 and K3
+    (``cuda_sweep.Sweep3dKernel.solve``, ``cuda_sweep2d.Sweep2dKernel.solve``)
+    at one cycle per iteration: each field on its own, from
     ``T0`` with the floor rebuilt from its source scalars, one plain cycle
     at a time until ``not (max|T_new - T_old| > tol)`` or ``max_cycles``
     cycles. Returns the batch and each field's cycle count (``(B,)``

@@ -298,8 +298,9 @@ def test_plane_limits_and_128_cube_launch():
     # device, so the message shows on CPU tensors too.
     big = torch.zeros((1, 8, 140, 140))
     with pytest.raises(ValueError, match="K1 holds .*139\\^2 but not 140\\^2"):
-        cuda_sweep.SWEEP3D(big, big, torch.zeros((1, 4)), (1.0, 1.0, 1.0), 2,
-                           seed_radius=3.0)
+        cuda_sweep.SWEEP3D.solve(big, big, torch.zeros((1, 4)),
+                                 (1.0, 1.0, 1.0), 2, 1e-3, 10,
+                                 seed_radius=3.0)
     with pytest.raises(ValueError, match="137\\^2 but not 138\\^2"):
         cuda_transport.TRANSPORT3D_LARGE(big, big, (big, big, big), 2)
     mid = torch.zeros((1, 8, 120, 120))

@@ -48,6 +48,15 @@ def _batch(dev, shape, spacing, srcs, seed=4, amp=0.3):
                                      dim=1).contiguous()
 
 
+def _k1_cycle(T0, s, scal, spacing, n_inner, seed_radius=3.0):
+    """One K1 cycle: its solve entry cut at one counted iteration of one
+    cycle (one per field)."""
+    out, cycles = cuda_sweep.SWEEP3D.solve(T0, s, scal, spacing, n_inner,
+                                           0.0, 1, seed_radius=seed_radius)
+    assert cycles.tolist() == [1] * T0.shape[0]
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,spacing", [
     ((24, 20, 16), (1.0, 1.2, 0.9)),    # weighted local solve, non-cube
@@ -58,24 +67,19 @@ def _batch(dev, shape, spacing, srcs, seed=4, amp=0.3):
     ((40, 70, 64), (1.0, 1.0, 1.0)),    # 4480-node plane: s staged, 5 slots
 ])
 def test_kernel_cycle_matches_plain(dev, shape, spacing):
-    """One launch equals one plain seeded cycle bit for bit (the same fp32
-    operations in the same order), for n_inner 2 and 1, and a done field
-    passes through untouched."""
+    """One launch cut at one cycle equals one plain seeded cycle bit for bit
+    (the same fp32 operations in the same order), for n_inner 2 and 1."""
     g, s, _, T0, scal = _batch(dev, shape, spacing,
                                [[3.0, 4.0, 5.0], [20.0, 10.0, 2.0],
                                 [12.5, 17.3, 9.1]])
-    done = torch.tensor([False, True, False], device=dev)
     launches = cuda_sweep.SWEEP3D.launches
-    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, done,
-                                  seed_radius=3.0)
-    torch.cuda.synchronize()
+    out = _k1_cycle(T0, s, scal, g.spacing, 2)
     assert cuda_sweep.SWEEP3D.launches == launches + 1
     assert torch.equal(out, sweep_seeded_cycle_plain(
-        T0, s, scal, g.spacing, 2, done, seed_radius=3.0))
-    assert torch.equal(out[1], T0[1])
+        T0, s, scal, g.spacing, 2, seed_radius=3.0))
     assert float((out[0] - T0[0]).abs().max()) > 1.0
     assert torch.equal(
-        cuda_sweep.SWEEP3D(T0, s, scal, g.spacing, 1, seed_radius=2.0),
+        _k1_cycle(T0, s, scal, g.spacing, 1, seed_radius=2.0),
         sweep_seeded_cycle_plain(T0, s, scal, g.spacing, 1, seed_radius=2.0))
 
 
@@ -101,19 +105,92 @@ def test_kernel_solve_matches_plain_solve(dev):
 def test_kernel_wrapper_checks_inputs(dev):
     g, s, _, T0, scal = _batch(dev, (8, 8, 8), (1.0, 1.0, 1.0),
                                [[1.0, 2.0, 3.0]])
-    k = cuda_sweep.SWEEP3D
+    solve = functools.partial(cuda_sweep.SWEEP3D.solve, spacing=g.spacing,
+                              n_inner=2, tol=1e-3, seed_radius=3.0)
     with pytest.raises(ValueError, match="float32"):
-        k(T0.double(), s, scal, g.spacing, 2, seed_radius=3.0)
+        solve(T0.double(), s, scal, max_cycles=10)
     with pytest.raises(ValueError, match="contiguous"):
-        k(T0.transpose(1, 2), s, scal, g.spacing, 2, seed_radius=3.0)
+        solve(T0.transpose(1, 2), s, scal, max_cycles=10)
     with pytest.raises(ValueError, match="shared"):
         big = torch.zeros((1, 8, 140, 140), device=dev)
-        k(big, big, scal, g.spacing, 2, seed_radius=3.0)
-    np.testing.assert_array_equal(
-        k(T0, s, scal, g.spacing, 2, torch.ones(1, dtype=torch.bool,
-                                                 device=dev),
-          seed_radius=3.0).cpu().numpy(),
-        T0.cpu().numpy())
+        solve(big, big, scal, max_cycles=10)
+    out, cycles = solve(T0, s, scal, max_cycles=0)
+    np.testing.assert_array_equal(out.cpu().numpy(), T0.cpu().numpy())
+    assert cycles.tolist() == [0]
+
+
+def _mixed_3d(dev, shape, spacing, n_fields, seed=4):
+    """A 3-D batch whose fields converge at different cycles: field 0
+    starts at its own fixed point (K1's solve at tol 0), field 1 has a
+    NaN in its slowness, the others are strongly contrasted fields with
+    sources spread over the grid (corners included)."""
+    gen = torch.Generator().manual_seed(seed)
+    hi = torch.tensor(shape, dtype=torch.float32) - 1.0
+    srcs = (torch.rand((n_fields, 3), generator=gen) * hi).tolist()
+    srcs[-1] = [0.0, 0.0, 0.0]
+    g, s, srcs, T0, scal = _batch(dev, shape, spacing, srcs, seed=seed,
+                                  amp=0.6)
+    T0[0] = cuda_sweep.SWEEP3D.solve(T0[:1], s[:1], scal[:1], g.spacing, 2,
+                                     0.0, 300, seed_radius=3.0)[0][0]
+    s[1, shape[0] // 2, shape[1] // 2, shape[2] // 2] = float("nan")
+    scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
+    T0[1] = seed_source(s[1:2], srcs[1:2], g, 3.0)[0][0]
+    return g, s, srcs, T0, scal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing,per_iter,tol,max_iters", [
+    ((64, 64, 64), (1.0, 1.0, 1.0), 1, 1e-5, 9),    # config 2, cut at 9
+    ((48, 48, 32), (1.0, 1.0, 1.0), 1, 1e-4, 40),   # config 3's non-cube
+    ((24, 20, 16), (1.0, 1.2, 0.9), 1, 1e-5, 60),   # weighted local solve
+    ((8, 80, 80), (1.0, 1.0, 1.0), 2, 1e-6, 4),     # s staged, 2 per iter
+    ((33, 31, 17), (1.0, 1.0, 1.1), 2, 1e-3, 0),    # no cycle at all
+])
+def test_kernel_solve_entry_matches_host_loops(dev, shape, spacing, per_iter,
+                                               tol, max_iters):
+    """K1's solve entry (each field's whole solve in one launch) equals the
+    host loop ``sweep_solve`` around the plain cycle bit for bit, NaN
+    included, with the same per-field cycle counts, on
+    batches that mix a field done in one iteration, a field with a NaN in s
+    (done after one iteration, as not (NaN > tol)) and strongly contrasted
+    fields; one launch per solve, and ``field_cycles()`` rises by the sum
+    of the counts. ``solve_eikonal_batched`` on the card is one launch
+    (the blocked route's two cycles per iteration where ``per_iter`` is
+    2)."""
+    g, s, srcs, T0, scal = _mixed_3d(dev, shape, spacing, 5)
+    k = cuda_sweep.SWEEP3D
+    ref, ref_cycles = sweep_solve(
+        T0, scal, s, g.spacing, tol, max_iters, 2, return_cycles=True,
+        cycle=functools.partial(sweep_seeded_cycle_plain, seed_radius=3.0),
+        cycles_per_iter=per_iter)
+    launches, c0 = k.launches, k.field_cycles()
+    out, cycles = k.solve(T0, s, scal, g.spacing, 2, tol, max_iters,
+                          seed_radius=3.0, cycles_per_iter=per_iter)
+    assert k.launches == launches + 1
+    assert k.field_cycles() - c0 == int(cycles.sum())
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(cycles, ref_cycles)
+    counts = cycles.tolist()
+    if max_iters == 0:
+        assert torch.equal(_bits(out), _bits(T0)) and not any(counts)
+        return
+    assert counts[0] == per_iter and counts[1] == per_iter
+    assert torch.isnan(out[1]).any() and torch.isfinite(out[[0, 2, 3, 4]]).all()
+    assert max(counts) > per_iter and all(c % per_iter == 0 for c in counts)
+    if shape == (64, 64, 64):
+        assert max(counts) == max_iters
+    if per_iter == 1:
+        fields, field_cycles = sweep_solve_fields_plain(
+            T0, s, scal, g.spacing, tol, max_iters, 2, seed_radius=3.0)
+        assert torch.equal(_bits(out), _bits(fields))
+        assert torch.equal(cycles, field_cycles)
+    # Fields 2-4 start from their seeds: the batched solve from scratch.
+    launches = k.launches
+    T = solve_eikonal_batched(s[2:], srcs[2:], g, EikonalConfig(
+        tol=tol, max_iters=max_iters),
+        impl="blocked" if per_iter == 2 else "field")
+    assert k.launches == launches + 1
+    assert torch.equal(_bits(T), _bits(ref[2:]))
 
 
 def _transport_batch(dev, shape, spacing, srcs, seed=5):
@@ -189,19 +266,18 @@ def _no_counter(dev):
 @pytest.mark.parametrize("name", ["K1", "K4", "K5"])
 def test_field_cycles_count_each_field_not_done(dev, monkeypatch, name):
     """Over a batch solve, K1's, K4's or K5's ``field_cycles()`` rises by
-    the sum of the solve's per-field cycle counts (each launch counts the
-    fields not done), below launches x fields where the fields converge
-    apart; with a null counter the kernel counts nothing and the outputs
-    are the same bits."""
+    the sum of the solve's per-field cycle counts (K1: in its one launch;
+    K4, K5: each launch counts the fields not done, below launches x fields
+    where the fields converge apart); with a null counter the kernel counts
+    nothing and the outputs are the same bits."""
     srcs = [[2.0, 3.0, 4.0], [30.0, 20.0, 2.0], [15.0, 12.0, 8.0],
             [31.0, 23.0, 15.0]]
     if name == "K1":
         kernel = cuda_sweep.SWEEP3D
         g_, s, _, T0, scal = _batch(dev, (32, 24, 16), (1.0, 1.0, 1.0), srcs,
                                     amp=0.6)
-        cycle = functools.partial(cuda_sweep.seeded_cycle, seed_radius=3.0)
-        run = lambda: sweep_solve(T0, scal, s, g_.spacing, 1e-5, 100, 2,
-                                  cycle=cycle, return_cycles=True)
+        run = lambda: kernel.solve(T0, s, scal, g_.spacing, 2, 1e-5, 100,
+                                   seed_radius=3.0)
     else:
         ws, g = _transport_batch(dev, (32, 24, 16), (1.0, 1.0, 1.0), srcs)
         if name == "K4":
@@ -218,7 +294,10 @@ def test_field_cycles_count_each_field_not_done(dev, monkeypatch, name):
     counted, launches = kernel.field_cycles() - c0, kernel.launches - l0
     assert counted == int(cycles.sum())
     assert int(cycles.min()) < int(cycles.max())
-    assert counted < launches * cycles.shape[0]
+    if name == "K1":
+        assert launches == 1
+    else:
+        assert counted < launches * cycles.shape[0]
     monkeypatch.setattr(kernel, "counter", _no_counter)
     c1 = kernel.field_cycles()
     out2, cycles2 = run()
@@ -599,7 +678,7 @@ def test_kernels_at_config3_batch(dev):
     assert launch_threads((128,) + C3_SHAPE) == 1024
     g, s, srcs, T0, frozen = _c3_batch(dev)
     scal = torch.cat(source_scalars(s, srcs, g), dim=1).contiguous()
-    out = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, seed_radius=3.0)
+    out = _k1_cycle(T0, s, scal, g.spacing, 2)
     assert torch.equal(out, sweep_seeded_cycle_plain(T0, s, scal, g.spacing,
                                                      2, seed_radius=3.0))
     cfg = EikonalConfig(tol=1e-3, max_iters=20)
@@ -650,18 +729,28 @@ def test_kernels_at_128_cube(dev):
     planes of at most 4096 nodes), K1 takes them in 192 KB (16 nodes per
     thread, s
     staged); one K1 cycle and one K5 cycle on two fields equal the plain
-    cycles bit for bit."""
+    cycles bit for bit, and the batched solve, on the blocked route (two
+    cycles per counted iteration, one K1 launch), the host loop around the
+    plain cycle."""
     shape = (128, 128, 128)
     assert cuda_transport.transport_kernel_for(shape) is \
         cuda_transport.TRANSPORT3D_LARGE
     assert cuda_sweep.sweep3d_smem(shape) == 196608
     g, s, srcs, T0, scal = _batch(dev, shape, (1.0, 1.0, 1.0),
                                   [[10.0, 20.0, 100.0], [64.0, 64.0, 3.0]])
-    T1 = cuda_sweep.seeded_cycle(T0, s, scal, g.spacing, 2, seed_radius=3.0)
+    T1 = _k1_cycle(T0, s, scal, g.spacing, 2)
     assert torch.equal(T1, sweep_seeded_cycle_plain(T0, s, scal, g.spacing,
                                                     2, seed_radius=3.0))
+    launches = cuda_sweep.SWEEP3D.launches
     T = solve_eikonal_batched(s, srcs, g, EikonalConfig(tol=1e-3,
                                                         max_iters=20))
+    assert cuda_sweep.SWEEP3D.launches == launches + 1
+    ref, cycles = sweep_solve(
+        T0, scal, s, g.spacing, 1e-3, 20, 2, return_cycles=True,
+        cycle=functools.partial(sweep_seeded_cycle_plain, seed_radius=3.0),
+        cycles_per_iter=2)
+    assert torch.equal(_bits(T), _bits(ref))
+    assert int(cycles.min()) > 2
     _, frozen = seed_source(s, srcs, g, 3.0)
     ws = transport_weights(T, s, frozen, g.spacing)
     gg = 0.1 * torch.randn(T.shape, generator=torch.Generator(
@@ -801,5 +890,5 @@ def test_seeded_cycle_matches_k1(dev, shape, spacing):
     T_p = solve_eikonal_batched(s, srcs, g, cfg, impl="xla")
     assert float((T_gb - T_p).abs().max()) <= 1e-4
     with pytest.raises(ValueError, match="scal"):
-        cuda_sweep.SWEEP3D(T0, s, scal[:, :3].contiguous(), g.spacing, 2,
-                           seed_radius=3.0)
+        cuda_sweep.SWEEP3D.solve(T0, s, scal[:, :3].contiguous(), g.spacing,
+                                 2, 1e-5, 100, seed_radius=3.0)

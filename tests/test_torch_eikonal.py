@@ -28,7 +28,9 @@ from mceik_tpu_torch.eikonal import godunov as tgod
 from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
 from mceik_tpu_torch.eikonal.solve import (EikonalConfig, seed_floor,
                                            seed_source, source_scalars,
-                                           sweep_cycle_plain)
+                                           sweep_cycle_plain,
+                                           sweep_seeded_cycle_plain,
+                                           sweep_solve)
 from mceik_tpu_torch.grid import Grid
 
 
@@ -153,8 +155,9 @@ def test_plain_solve_matches_pallas_fused012_interpret():
 def test_cuda_sweep_cpu_dispatch():
     """The kernel module imports without nvcc or a card; a CPU tensor goes
     to the plain version and leaves the launch counter at 0 (the seeded
-    cycle's plain version, the same bits); the kernel itself refuses CPU
-    tensors; a Pallas-only mode is refused; without nvcc
+    cycle's plain version, the same bits; ``cuda_sweep.solve`` the host
+    loop ``sweep_solve`` around it, the same bits); the kernel itself
+    refuses CPU tensors; a Pallas-only mode is refused; without nvcc
     the build raises."""
     shape = (6, 5, 4)
     rng = np.random.default_rng(3)
@@ -172,8 +175,16 @@ def test_cuda_sweep_cpu_dispatch():
         out.numpy(), sweep_cycle_plain(T0, s, fl, g.spacing, 2, done).numpy())
     np.testing.assert_array_equal(out[1].numpy(), T0[1].numpy())
     assert float((out[0] - T0[0]).abs().max()) > 1.0
-    with pytest.raises(ValueError):
-        cuda_sweep.SWEEP3D(T0, s, scal, g.spacing, 2, done, seed_radius=1.0)
+    ref = sweep_solve(T0, scal, s, g.spacing, 1e-5, 40, 2,
+                      cycle=lambda *a: sweep_seeded_cycle_plain(
+                          *a, seed_radius=1.0))
+    out = cuda_sweep.solve(T0, s, scal, g.spacing, 1e-5, 40, 2,
+                           seed_radius=1.0)
+    assert cuda_sweep.SWEEP3D.launches == 0
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.SWEEP3D.solve(T0, s, scal, g.spacing, 2, 1e-3, 10,
+                                 seed_radius=1.0)
     with pytest.raises(ValueError):
         solve_eikonal_batched(s[0], torch.tensor([[1.0, 2.0, 3.0]]), g,
                               EikonalConfig(use_pallas="interpret"))
@@ -181,3 +192,19 @@ def test_cuda_sweep_cpu_dispatch():
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             cuda_sweep.Sweep3dKernel().build()
+
+
+@pytest.mark.parametrize("max_cycles,per_iter", [
+    (-1, 1), (10, 0), (10, -2), (2 ** 30, 2)])
+def test_k1_solve_refuses_bad_counts_before_build(max_cycles, per_iter,
+                                                  monkeypatch):
+    """K1's solve entry refuses a negative iteration count, a counted
+    iteration of fewer than one cycle and a cycle count past 32 bits with
+    ValueError before anything is built or launched."""
+    k = cuda_sweep.Sweep3dKernel()
+    monkeypatch.setattr(k, "build", lambda: pytest.fail("built"))
+    T = torch.zeros((2, 6, 5, 4))
+    with pytest.raises(ValueError, match="max_cycles .* cycles_per_iter"):
+        k.solve(T, T, torch.zeros((2, 4)), (1.0, 1.0, 1.0), 2, 1e-3,
+                max_cycles, seed_radius=3.0, cycles_per_iter=per_iter)
+    assert k.launches == 0

@@ -143,11 +143,11 @@ def test_gridbatch_refusals():
                               impl="packed")
     T = torch.zeros((2,) + GRID.shape)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_sweep.SWEEP3D(T, T, torch.zeros((2, 4)), GRID.spacing, 2,
-                                  seed_radius=3.0)
+        cuda_sweep.SWEEP3D.solve(T, T, torch.zeros((2, 4)), GRID.spacing, 2,
+                                 1e-3, 10, seed_radius=3.0)
     with pytest.raises(ValueError, match="\\(B, nx, ny, nz\\)"):
-        cuda_sweep.SWEEP3D(T[:, 0], T[:, 0], torch.zeros((2, 4)),
-                                  (1.0, 1.0), 2, seed_radius=3.0)
+        cuda_sweep.SWEEP3D.solve(T[:, 0], T[:, 0], torch.zeros((2, 4)),
+                                 (1.0, 1.0), 2, 1e-3, 10, seed_radius=3.0)
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -169,5 +169,5 @@ def test_wrapper_refuses_bad_scal_before_build(scal, monkeypatch):
     monkeypatch.setattr(k, "build", lambda: pytest.fail("built"))
     T = torch.zeros((2,) + GRID.shape)
     with pytest.raises(ValueError, match="scal"):
-        k(T, T, scal, GRID.spacing, 2, seed_radius=3.0)
+        k.solve(T, T, scal, GRID.spacing, 2, 1e-3, 10, seed_radius=3.0)
     assert k.launches == 0
