@@ -3,16 +3,39 @@
 - ``BENCHMARK.json`` at the root of the checkout: the cells and metrics.
 - ``portbench/configs/<config>.json``: one deployment (the port's ``grid``,
   ``eikonal``, ``model`` and ``data`` groups as run, its ``source``,
-  ``reduced``, ``assumed``) and the name of its plain reference
-  (``portbench/reference/<reference>.py``).
+  ``assumed``, the name of its plain reference,
+  ``portbench/reference/<reference>.py``, and its cuts: ``reduced`` lists
+  the keys cut from the source, as the configuration's entry in
+  ``BENCHMARK.json`` lists them, and ``published`` gives each of them a
+  line that names the key and its published value).
 - ``portbench/workloads/<cell>.json``: one traffic mix on that deployment:
-  its ``config`` and ``traffic`` names, the ``driver``
-  (``portbench/drivers/<driver>.py``), the ``sampler`` group as run, the
-  driver's settings and the ``checks``' limits.
-- ``portbench/layer_metrics/<metric>.py``: one per-layer metric's reader.
+  its ``config`` and ``traffic`` names, the ``driver``, the ``rate`` (the
+  end-to-end metric it reports besides ``setup_s``), the ``sampler`` group
+  as run, the driver's settings and the ``checks``' limits.
+- ``portbench/drivers/<driver>.py``: the program's side of a cell, a class
+  ``Run`` with what ``benchlib/cell.py`` uses of it: ``__init__(cell,
+  data, seed, device)``, which sets up and warms up; the methods ``chunk``,
+  ``start_window``, ``release``, ``check``, ``as_control`` and ``shapes``;
+  and the attribute ``phases``, declared in the class.
+- ``portbench/reference/<reference>.py``: a plain reference with
+  ``make_data``, ``for_config`` and ``tf32``.
+- ``portbench/layer_metrics/<metric>.py``: one per-layer metric's reader,
+  with ``UNIT``, ``read(ctx)`` and, where it reads the program's counters,
+  ``COUNTERS``.
 
-A new configuration, cell or per-layer metric is new files of these kinds
-and one entry in ``BENCHMARK.json``: no file here changes.
+Adding a cell takes new files and entries, and no file here changes:
+
+1. the files it needs that are not there yet: a configuration, its
+   workload file, a reference, a driver, and a reader for each new
+   per-layer metric;
+2. its entry in ``workloads``, and its configuration's in ``configs``
+   where that is new;
+3. an entry in ``per_layer`` for each new per-layer metric, listing the
+   cell under ``workloads``;
+4. the cell's name added to the ``workloads`` list of its rate in
+   ``end_to_end`` (and of each existing per-layer metric it reports): the
+   only change to an entry that is there, needed because :func:`metrics`
+   gives a cell only the metrics that list it.
 """
 
 from __future__ import annotations

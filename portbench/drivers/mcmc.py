@@ -33,6 +33,8 @@ that stays where the reference accepts, or moves where it rejects.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from mceik_tpu_torch.api import (_dispatch_sampler, _uses_gradients,
                                  with_noise_gibbs)
@@ -46,6 +48,8 @@ from reference import mala as mala_ref
 
 
 class Run:
+    phases: Dict[str, float]   # set-up seconds by phase
+
     def __init__(self, cell, data, seed: int, device):
         w = cell.workload
         self.cfg = cfg = port.run_config(cell, seed)

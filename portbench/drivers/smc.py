@@ -26,6 +26,8 @@ where resampling put them, reads 1 or more than half.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from mceik_tpu_torch.samplers import smc
 
@@ -34,6 +36,8 @@ from benchlib.compare import rel_gap, seen
 
 
 class Run:
+    phases: Dict[str, float]   # set-up seconds by phase
+
     def __init__(self, cell, data, seed: int, device):
         w = cell.workload
         self.cfg = cfg = port.run_config(cell, seed)

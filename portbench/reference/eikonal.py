@@ -17,10 +17,19 @@ The forward solve (fast sweeping with the Godunov upwind update):
   and then ``n_inner`` Jacobi steps inside the plane,
   ``T = max(min(T, local_solve(a)), floor)``, where ``a`` holds ``a_ax`` and
   the in-plane neighbour minima in grid order.
-- The solve: each field on its own, one cycle at a time, until a cycle
-  changes it by no more than ``tol`` (a NaN change counts as done) or
-  ``max_iters`` cycles (fields up to 2 MiB of fp32; the reference solver
-  counts two cycles an iteration above, which no cell here runs).
+- The solve: each field on its own, one counted iteration at a time, until
+  an iteration changes it by no more than ``tol`` (a NaN change counts as
+  done) or ``max_iters`` iterations. An iteration is one cycle on fields
+  of up to ``WHOLE_FIELD_BYTES`` (2 MiB of fp32) and two above: there the
+  reference solver sweeps a field in axis-0 blocks, an ascending and then
+  a descending pass of whole-block cycles, two whole-field cycles of work
+  per counted iteration. The change is taken over the whole iteration
+  (its end against its start), and a field's cycle count is its
+  iterations times the cycles in one, as the port's blocked route counts
+  them (``CYCLES_PER_ITER["blocked"]`` and ``sweep_solve`` in
+  ``eikonal/solve.py``, ``per_iter`` in ``csrc/sweep3d.cu``). The one
+  difference: this solve runs two whole-field cycles, not the reference
+  solver's block passes, as the port does.
 - Equal spacings on every axis, as every configuration of the repo has.
 
 The adjoint (the implicit function theorem at the converged field): with
@@ -29,8 +38,11 @@ loss ``L(T)`` is ``(dF/ds)^T lam`` with ``lam = (dF/dT)^T lam + dL/dT``. The
 weights ``dF/dT`` are upwind, one per axis (the derivative of the local
 solve in its argmin neighbour, signed by the side it lies on), and ``lam``
 comes from bidirectional plane Gauss-Seidel sweeps, each field stopping once
-a cycle changes it by no more than ``tol * (1e-3 + max|g|)``, or
-diverging (a change above ten times its first, or not finite: then all NaN).
+a counted iteration changes it by no more than ``tol * (1e-3 + max|g|)``,
+or diverging (a change above ten times its first iteration's, or not
+finite: then all NaN). Its iterations are counted as the forward solve's:
+one cycle each up to ``WHOLE_FIELD_BYTES``, two above (the port's
+``adjoint_sweep.transport_solve`` with ``cycles_per_iter``).
 """
 
 from __future__ import annotations
@@ -44,15 +56,20 @@ BIG = 1e10
 DISC_FLOOR = 1e-12
 DIVERGENCE_FACTOR = 10.0
 # The largest field whose counted iteration is one cycle (fp32 bytes); the
-# reference solver counts two above it, which no cell here runs.
+# reference solver counts two above it.
 WHOLE_FIELD_BYTES = 2 * 1024 * 1024
 
 
-def _check_whole(shape: Sequence[int]):
-    if 4 * math.prod(shape) > WHOLE_FIELD_BYTES:
-        raise ValueError(f"fields of {tuple(shape)} take two cycles per "
-                         "counted iteration, which this reference does not "
-                         "count")
+def cycles_per_iter(shape: Sequence[int]) -> int:
+    """Whole-field cycles in one counted iteration on fields of ``shape``."""
+    return 1 if 4 * math.prod(shape) <= WHOLE_FIELD_BYTES else 2
+
+
+def _cycles(cycle, x: torch.Tensor, per_iter: int, *args) -> torch.Tensor:
+    """``per_iter`` cycles of ``cycle(x, *args)``, one after the other."""
+    for _ in range(per_iter):
+        x = cycle(x, *args)
+    return x
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -186,19 +203,22 @@ def sweep_cycle(T: torch.Tensor, s: torch.Tensor, floor: torch.Tensor,
 def solve(s: torch.Tensor, src_idx: torch.Tensor, spacing: Sequence[float],
           tol: float, max_iters: int, n_inner: int, seed_radius: float
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The traveltime batch and each field's cycle count ``(B,)``."""
+    """The traveltime batch and each field's cycle count ``(B,)``;
+    ``max_iters`` counts iterations (:func:`cycles_per_iter` cycles
+    each)."""
     T0, frozen = seed(s, src_idx, spacing, seed_radius)
     floor = torch.where(frozen, T0, torch.zeros_like(T0))
-    _check_whole(s.shape[1:])
+    per_iter = cycles_per_iter(s.shape[1:])
     B = s.shape[0]
     T = T0
     done = torch.zeros(B, dtype=torch.bool, device=s.device)
     cycles = torch.zeros(B, dtype=torch.int64, device=s.device)
     view = (B,) + (1,) * (s.ndim - 1)
     for _ in range(max_iters):
-        cycles += (~done).long()
+        cycles += (~done).long() * per_iter
         T_new = torch.where(done.reshape(view), T,
-                            sweep_cycle(T, s, floor, spacing, n_inner))
+                            _cycles(sweep_cycle, T, per_iter, s, floor,
+                                    spacing, n_inner))
         change = (T_new - T).abs().flatten(1).amax(1)
         done = done | ~(change > tol)
         T = T_new
@@ -283,10 +303,10 @@ def transport_cycle(lam: torch.Tensor, g: torch.Tensor,
 def transport_solve(g: torch.Tensor, ws: Sequence[torch.Tensor], tol: float,
                     max_iters: int, n_inner: int) -> torch.Tensor:
     """``lam`` for every field of ``g``, each on its own; a diverged field is
-    all NaN."""
+    all NaN. ``max_iters`` counts iterations, as :func:`solve`'s."""
     B = g.shape[0]
     view = (B,) + (1,) * (g.ndim - 1)
-    _check_whole(g.shape[1:])
+    per_iter = cycles_per_iter(g.shape[1:])
     tol_f = tol * (1e-3 + g.abs().flatten(1).amax(1))
     lam = g
     done = torch.zeros(B, dtype=torch.bool, device=g.device)
@@ -294,7 +314,8 @@ def transport_solve(g: torch.Tensor, ws: Sequence[torch.Tensor], tol: float,
     first = None
     for _ in range(max_iters):
         new = torch.where(done.reshape(view), lam,
-                          transport_cycle(lam, g, ws, n_inner))
+                          _cycles(transport_cycle, lam, per_iter, g, ws,
+                                  n_inner))
         change = (new - lam).abs().flatten(1).amax(1)
         first = change if first is None else first
         live = ~done

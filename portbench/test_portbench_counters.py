@@ -40,20 +40,6 @@ def test_k4_roofline_cycles_at_c2():
     assert _read("k4_roofline.cycles", ctx) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("k", ["1", "4"])
-def test_cycles_share_equals_launch_share_when_no_field_is_done(k):
-    """Where every field runs every launch the field-cycles are launches x
-    fields, and the two shares agree."""
-    kernels = {"void sweep3d_cycle_kernel<4, true>(float*)": 0.7,
-               "void transport3d_cycle_kernel<4, true, false>()": 0.4}
-    work_ = {"forward_fields": 256, "transport_fields": 256}
-    by_launch = _ctx(C2, {f"k{k}_launches": 12.0}, kernels, work_, 128)
-    by_cycle = _ctx(C2, {f"k{k}_field_cycles": 12.0 * 128}, kernels, work_,
-                    128)
-    assert _read(f"k{k}_roofline.cycles", by_cycle) == pytest.approx(
-        _read(f"k{k}_roofline", by_launch))
-
-
 @pytest.mark.parametrize("name,counter,work_key", [
     ("k1_cycles_per_solve", "k1_field_cycles", "forward_fields"),
     ("k4_cycles_per_solve", "k4_field_cycles", "transport_fields")])

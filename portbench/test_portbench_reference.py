@@ -60,6 +60,69 @@ def test_solve_matches_the_programs_plain_solve(cfg):
     assert bool((cycles > 1).all())
 
 
+@pytest.fixture
+def two_cycle_threshold(monkeypatch):
+    """The reference's whole-field limit lowered under a 10 x 9 x 8 field,
+    so that such a field takes the two-cycle count of fields above 2 MiB."""
+    monkeypatch.setattr(eikonal, "WHOLE_FIELD_BYTES", 4 * 10 * 9 * 8 - 4)
+
+
+def _batch(shape, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    s = 1.0 + 0.2 * torch.rand((n,) + shape, generator=g)
+    src = torch.rand((n, len(shape)), generator=g) * (
+        torch.tensor(shape, dtype=torch.float32) - 1)
+    return s, src
+
+
+def test_two_cycle_count_matches_the_programs_blocked_count(
+        two_cycle_threshold):
+    """Above the limit a counted iteration is two cycles: the fields and each
+    field's cycle count are those of the program's plain solve on the
+    blocked route's count (``sweep_solve`` with ``cycles_per_iter=2``)."""
+    from mceik_tpu_torch.eikonal.batched import solve_eikonal_batched
+    from mceik_tpu_torch.eikonal.solve import (CYCLES_PER_ITER, EikonalConfig,
+                                               seed_floor, seed_source,
+                                               sweep_solve)
+    from mceik_tpu_torch.grid import Grid
+
+    shape, spacing = (10, 9, 8), (1.0, 1.0, 1.0)
+    s, src = _batch(shape, 4, 7)
+    assert eikonal.cycles_per_iter(shape) == CYCLES_PER_ITER["blocked"] == 2
+    T, cycles = eikonal.solve(s, src, spacing, 1e-3, 20, 2, 3.0)
+    grid = Grid(shape=shape, spacing=spacing)
+    T0, frozen = seed_source(s, src, grid, 3.0)
+    T_p, cycles_p = sweep_solve(T0, seed_floor(T0, frozen), s, spacing, 1e-3,
+                                20, 2, cycles_per_iter=2, return_cycles=True)
+    assert torch.allclose(T, T_p, rtol=0, atol=1e-5)
+    assert torch.equal(cycles, cycles_p.long())
+    assert bool((cycles % 2 == 0).all()) and bool((cycles >= 4).all())
+    # The blocked route's solve of the program (its plain version on the
+    # CPU) gives the same fields.
+    T_b = solve_eikonal_batched(s, src, grid, EikonalConfig(
+        tol=1e-3, max_iters=20, n_inner=2), impl="blocked")
+    assert torch.allclose(T, T_b, rtol=0, atol=1e-5)
+    # At the limit itself a field takes one cycle an iteration, as before.
+    assert eikonal.cycles_per_iter((10, 9, 7)) == 1
+
+
+def test_two_cycle_transport_matches_the_programs(two_cycle_threshold):
+    """The adjoint above the limit: two cycles a counted iteration, as the
+    program's plain ``transport_solve`` with ``cycles_per_iter=2``."""
+    from mceik_tpu_torch.eikonal.adjoint_sweep import transport_solve
+
+    shape, spacing = (10, 9, 8), (1.0, 1.0, 1.0)
+    s, src = _batch(shape, 3, 8)
+    T, _ = eikonal.solve(s, src, spacing, 1e-4, 30, 2, 3.0)
+    _, frozen = eikonal.seed(s, src, spacing, 3.0)
+    ws = eikonal.transport_weights(T, s, frozen, spacing)
+    g = torch.rand(T.shape, generator=torch.Generator().manual_seed(9))
+    lam = eikonal.transport_solve(g, ws, 1e-4, 30, 2)
+    lam_p = transport_solve(g, ws, 1e-4, 30, 2, cycles_per_iter=2)
+    assert torch.isfinite(lam).all()
+    assert torch.allclose(lam, lam_p, rtol=1e-5, atol=1e-5)
+
+
 def test_homogeneous_medium_is_near_the_distance():
     shape = (20, 20, 20)
     s = torch.full((1,) + shape, 0.5)

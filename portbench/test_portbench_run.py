@@ -30,7 +30,9 @@ def shrink(c):
         s.update(n_chains=16, n_warmup=4)
         if "n_map_steps" in s:
             s["n_map_steps"] = 3
-        c.workload["chunk_steps"] = 2
+        # Enough steps a chunk that a sound chain moves in a half-second
+        # window, which may hold one chunk.
+        c.workload["chunk_steps"] = 8
     else:
         cfg["grid"]["shape"] = [16, 15]
         cfg["model"]["inv_shape"] = [4, 4]

@@ -31,23 +31,26 @@ def _ctx(grid, counters, kernels, work_, fields):
 
 
 def test_k1_at_c2():
-    # 10 launches of 128 fields of 64^3, 2 solves of 128 fields, 1 s on K1:
-    # 262144 x (10 x 128 x 429 + 256 x 21) operations over 67 TFLOP/s.
-    ctx = _ctx([64, 64, 64], {"k1_launches": 10.0},
+    # 10 cycles of 128 fields of 64^3 (1,280 field-cycles), 2 solves of 128
+    # fields, 1 s on K1: 262144 x (1280 x 429 + 256 x 21) operations over
+    # 67 TFLOP/s.
+    ctx = _ctx([64, 64, 64], {"k1_field_cycles": 10.0 * 128},
                {"void sweep3d_cycle_kernel<4, true>(float*)": 1.0,
                 "other": 5.0}, {"forward_fields": 256}, 128)
     ops = 262144 * (10 * 128 * 429 + 256 * 21)
     want = 100 * ops / 67e12
-    assert layout.layer_metric("k1_roofline").read(ctx) == pytest.approx(want)
+    assert layout.layer_metric("k1_roofline.cycles").read(ctx) \
+        == pytest.approx(want)
 
 
 def test_k4_at_c2():
-    ctx = _ctx([64, 64, 64], {"k4_launches": 13.0},
+    ctx = _ctx([64, 64, 64], {"k4_field_cycles": 13.0 * 128},
                {"void transport3d_cycle_kernel<4, true, false>()": 0.5},
                {"transport_fields": 128}, 128)
     ops = 262144 * (13 * 128 * 123 + 128 * 9)
     want = 100 * ops / 67e12 / 0.5
-    assert layout.layer_metric("k4_roofline").read(ctx) == pytest.approx(want)
+    assert layout.layer_metric("k4_roofline.cycles").read(ctx) \
+        == pytest.approx(want)
 
 
 def test_k3_at_c4():
@@ -63,10 +66,10 @@ def test_k3_at_c4():
 
 
 def test_nothing_to_read_gives_nothing():
-    ctx = _ctx([64, 64, 64], {"k1_launches": 0.0}, {}, {}, 128)
-    assert layout.layer_metric("k1_roofline").read(ctx) is None
+    ctx = _ctx([64, 64, 64], {"k1_field_cycles": 0.0}, {}, {}, 128)
+    assert layout.layer_metric("k1_roofline.cycles").read(ctx) is None
     ctx["counters_after"] = {}
-    assert layout.layer_metric("k4_roofline").read(ctx) is None
+    assert layout.layer_metric("k4_roofline.cycles").read(ctx) is None
     ctx = _ctx([48, 48], {"k3_field_cycles": 5.0}, {}, {}, 80000)
     assert layout.layer_metric("k3_roofline").read(ctx) is None
     assert roofline.share(1.0, 1.0, 0.0) is None
